@@ -1,0 +1,112 @@
+"""GPU-only tests of autoprog_tpu_torch: the CUDA kernels against their
+plain PyTorch twins, on the card. They skip without a CUDA device (a CUDA
+kernel has no CPU mode); the CPU tests hold the twins against the JAX
+package.
+
+This file imports no jax, so it also runs where jax is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerance: the kernel and the twin round at the same points and differ
+only in f32 summation order, which can flip one rounding to the working
+dtype: 2 ulp of the largest |value| (bf16 2^-6 relative, f32 2^-20).
+"""
+
+import pytest
+import torch
+
+from autoprog_tpu_torch.ops import attention as A
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 2.0 ** -20}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def assert_close(got, ref, dtype):
+    err = (got.float() - ref.float()).abs().max().item()
+    assert torch.isfinite(got).all()
+    assert err <= TOL[dtype] * max(1.0, ref.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("scores_f32", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,n,heads,d", [
+    (4, 196, 12, 32),      # volo_d1 at 224 px
+    (2, 1024, 2, 128),     # the router's edge
+    (3, 37, 3, 48),        # ragged n, head_dim not a power of two
+    (2, 1, 2, 32),
+    (2, 70, 2, 20),        # head_dim % 8 != 0: scalar loads
+    (2, 129, 4, 64),
+])
+def test_kernel_matches_twin(cuda_device, dtype, scores_f32, B, n, heads, d):
+    g = torch.Generator(cuda_device).manual_seed(0)
+    x = torch.randn(B, n, 3 * heads * d, device=cuda_device, generator=g).to(dtype)
+    dout = torch.randn(B, n, heads * d, device=cuda_device, generator=g).to(dtype)
+    scale = d ** -0.5
+    before = dict(A.LAUNCHES)
+    x.requires_grad_(True)
+    out = A.mhsa_fused_qkv(x, heads, scale, scores_f32=scores_f32)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    assert out.dtype == x.grad.dtype == dtype
+    assert_close(out, A.mhsa_fused_qkv_reference(x.detach(), heads, scale, scores_f32),
+                 dtype)
+    assert_close(x.grad, A.mhsa_fused_qkv_backward_reference(
+        x.detach(), dout, heads, scale, scores_f32), dtype)
+
+
+def test_kernel_takes_an_unaligned_base(cuda_device):
+    """A qkv view whose base is not 16-byte aligned takes the scalar loads."""
+    B, n, heads, d = 2, 196, 12, 32
+    g = torch.Generator(cuda_device).manual_seed(1)
+    flat = torch.randn(B * n * 3 * heads * d + 1, device=cuda_device,
+                       generator=g).bfloat16()
+    x = flat[1:].view(B, n, 3 * heads * d)
+    dout = torch.randn(B, n, heads * d, device=cuda_device, generator=g).bfloat16()
+    scale = d ** -0.5
+    out = A._launch_fwd(x, heads, scale, False)
+    dx = A._launch_bwd(x, dout, heads, scale, False)
+    torch.cuda.synchronize()
+    assert_close(out, A.mhsa_fused_qkv_reference(x, heads, scale), torch.bfloat16)
+    assert_close(dx, A.mhsa_fused_qkv_backward_reference(x, dout, heads, scale),
+                 torch.bfloat16)
+
+
+def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    x = torch.zeros(2, 16, 3 * 64, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        A.mhsa_fused_qkv(x, 2, 0.125)
+
+
+def test_volo_through_the_kernel_matches_the_unfused_path(cuda_device, monkeypatch):
+    """volo_h2_l4 forward and backward in f32 on the card, MHSA through K1
+    against the unfused PyTorch path; summation order only (rtol 1e-4)."""
+    from autoprog_tpu_torch import create_model
+    torch.manual_seed(0)
+    model = create_model("volo_h2_l4").make(num_classes=10, img_size=64,
+                                            dtype=torch.float32).to(cuda_device)
+    x = torch.randn(2, 64, 64, 3, device=cuda_device)
+    bbox = torch.tensor([0, 1, 2, 3], dtype=torch.int32)
+    runs = {}
+    for fused in ("0", "1"):
+        monkeypatch.setenv("AUTOPROG_FUSED_ATTN", fused)
+        model.zero_grad(set_to_none=True)
+        before = A.LAUNCHES["bwd"]
+        x_cls, x_aux, _ = model(x, train=True, bbox=bbox)
+        (x_cls.square().mean() + x_aux.square().mean()).backward()
+        torch.cuda.synchronize()
+        assert (A.LAUNCHES["bwd"] > before) == (fused == "1")
+        runs[fused] = (x_cls.detach(), {n: p.grad.clone() for n, p in
+                                        model.named_parameters() if p.grad is not None})
+    torch.testing.assert_close(runs["1"][0], runs["0"][0], rtol=1e-4, atol=1e-5)
+    for name, grad in runs["0"][1].items():
+        torch.testing.assert_close(runs["1"][1][name], grad, rtol=1e-4, atol=1e-5,
+                                   msg=name)
