@@ -1,18 +1,20 @@
 """Build the CUDA kernels under `csrc/` at first use and load them.
 
-`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds):
+`nvcc` compiles each `csrc/*.cu` into a shared library of its own with a
+plain C interface (no PyTorch headers, so a build takes seconds), all
+sources at once, one compiler process each:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>.so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<stem>_<hash>.so csrc/<stem>.cu
 
-The library lands in `build/kernels/` beside the package (git-ignored),
-named by a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one loads the existing file. The compiler's output, with the
-`-Xptxas -v` register and shared-memory report, is kept next to it as
-`<name>.log`. The library is loaded with `ctypes`: pointers and the stream
-are `c_void_p`, and each entry point returns `cudaGetLastError()` (or -1
-for a shape it refuses), which the caller turns into an exception.
+The libraries land in `build/kernels/` beside the package (git-ignored),
+each named by a hash of its source, the shared headers and the flags, so an
+edited source rebuilds and an unchanged one loads the existing file. The
+compiler's output, with the `-Xptxas -v` register and shared-memory report,
+is kept next to it as `<name>.log`. The libraries are loaded with `ctypes`:
+pointers and the stream are `c_void_p`, and each entry point returns
+`cudaGetLastError()` (or -1 for a shape it refuses), which the caller turns
+into an exception.
 
 A missing `nvcc` or a failed build raises; nothing falls back.
 """
@@ -26,6 +28,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -41,6 +44,12 @@ SIGNATURES = {
     "mhsa_qkv_fwd": (_I, [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
     # qkv, dout, dqkv, stats, B, n, C, H, scale, scores_f32, dtype, stream
     "mhsa_qkv_bwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
+    # v, logits, out, B, H, W, C, heads, scale, dtype, stream
+    "outlook_fused_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    # v, logits, gout, dv, dlogits, B, H, W, C, heads, scale, dtype, stream
+    "outlook_fused_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    # patches, logits, out, B, n, C, heads, scale, head_minor, dtype, stream
+    "outlook_attend": (_I, [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
 }
 
 
@@ -59,43 +68,68 @@ def _nvcc() -> str:
                        "the CUDA kernels of autoprog_tpu_torch cannot be built")
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_paths() -> Dict[str, Path]:
+    """Where the library of each `.cu` source lives (built or not)."""
+    base = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in _sources():
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    return BUILD_DIR / f"autoprog_kernels_{h.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile the sources unless the library for them exists; return it."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    os.replace(tmp, out)
+        if p.suffix == ".cuh":
+            base.update(p.name.encode())
+            base.update(p.read_bytes())
+    out = {}
+    for p in _sources():
+        if p.suffix == ".cu":
+            h = base.copy()
+            h.update(p.read_bytes())
+            out[str(p)] = BUILD_DIR / f"{p.stem}_{h.hexdigest()[:16]}.so"
     return out
 
 
+def build() -> List[Path]:
+    """Compile every source whose library is missing, all compilers started
+    together; return the libraries."""
+    paths = library_paths()
+    missing = {src: out for src, out in paths.items() if not out.exists()}
+    if missing:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        jobs = []
+        for src, out in missing.items():
+            tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), src]
+            jobs.append((out, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for out, tmp, cmd, proc in jobs:
+            text, _ = proc.communicate()
+            out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + text)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed ({proc.returncode}) on {cmd[-1]}:\n{text[-4000:]}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return list(paths.values())
+
+
+class _Kernels:
+    """The entry points of every library, by name."""
+
+
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    """Build if needed and load the kernel library (once per process)."""
-    lib = ctypes.CDLL(str(build()))
+def load() -> _Kernels:
+    """Build if needed and load the kernel libraries (once per process)."""
+    libs = [ctypes.CDLL(str(p)) for p in build()]
+    kernels = _Kernels()
     for name, (restype, argtypes) in SIGNATURES.items():
-        fn = getattr(lib, name)
+        owners = [lib for lib in libs if hasattr(lib, name)]
+        if len(owners) != 1:
+            raise RuntimeError(f"{name}: exported by {len(owners)} kernel libraries")
+        fn = getattr(owners[0], name)
         fn.restype = restype
         fn.argtypes = argtypes
-    return lib
+        setattr(kernels, name, fn)
+    return kernels
 
 
 def check(rc: int, what: str) -> None:

@@ -1,1 +1,1 @@
-"""Device-side data pieces of the port (the host pipeline is autoprog_tpu.data)."""
+"""Host input pipeline of the port (datasets, loader, augmentation, mixup) and its device-side token-label pieces."""

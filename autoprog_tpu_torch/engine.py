@@ -1,15 +1,18 @@
-"""Training engine of the fixed trainer, counterpart of the parts of
-`autoprog_tpu/engine.py` that `main.py` uses: `setup`, `init_model_state`,
-`make_train_loader`, `make_eval_loader`, `train_one_epoch`, `evaluate`,
-`evaluate_all` and `ckpt_payload`.
+"""Training engine, counterpart of `autoprog_tpu/engine.py`: `setup`,
+`init_model_state`, the train / eval / search loaders, `train_one_epoch`,
+`evaluate`, `evaluate_all`, `create_stage_model_and_state` and
+`ckpt_payload`. `main.py` and `main_prog.py` are thin loops over these.
 
 The host input pipeline (datasets, augmentation, mixup, token-label map
-cropping) is the JAX package's own jax-free code, imported. Batches arrive
-as numpy and move to the device once per step. Losses stay on the device
-and are read on the host only at log intervals.
+cropping) is the port's own `data/` package. Batches arrive as numpy and
+move to the device once per step. Losses stay on the device and are read on
+the host only at log intervals.
 
-Stage rebuilds (growth, shrink), resume and the search machinery are not
-ported yet.
+A stage rebuild makes a new model and optimizer (fresh moments, the two
+weight-decay groups of `train/optim.py`), remaps the parameters and every
+EMA tree into it (`prog/growth.py`) and carries the step count on; the LR
+schedule is a function of the epoch and is untouched. Resume is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -22,13 +25,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from autoprog_tpu.config import resolve_data_config
-from autoprog_tpu.data.dataset import create_dataset
-from autoprog_tpu.data.loader import Loader, create_loader, pad_eval_batch
-from autoprog_tpu.data.mixup import Mixup
-from autoprog_tpu.utils.meters import AverageMeter
+from autoprog_tpu_torch.config import resolve_data_config
+from autoprog_tpu_torch.data.dataset import create_dataset
+from autoprog_tpu_torch.data.loader import Loader, create_loader, pad_eval_batch
+from autoprog_tpu_torch.data.mixup import Mixup
+from autoprog_tpu_torch.utils.meters import AverageMeter
 from autoprog_tpu_torch.losses import build_train_loss
 from autoprog_tpu_torch.platform import default_device
+from autoprog_tpu_torch.prog.growth import grow_batch_stats, grow_params, shrink_params
 from autoprog_tpu_torch.registry import create_model
 from autoprog_tpu_torch.train.checkpoint import CheckpointSaver, build_payload
 from autoprog_tpu_torch.train.optim import create_grad_clip, create_optimizer, create_scheduler
@@ -52,6 +56,7 @@ class TrainContext:
     saver: Optional[CheckpointSaver] = None
     args_text: str = ""
     output_dir: str = ""
+    stage_history: Optional[List[Dict[str, Any]]] = None
 
     def compute_dtype(self) -> torch.dtype:
         return torch.float32 if self.args.no_bf16 else torch.bfloat16
@@ -90,17 +95,21 @@ def init_model_state(ctx: TrainContext, model_name: str, dp: float, seed: int) -
     _logger.info("Model %s created, param count: %d", model_name, n)
 
 
-def setup(args, args_text: str, *, output_dir: str = "") -> TrainContext:
+def setup(args, args_text: str, *, prog: bool = False, output_dir: str = "",
+          initial_model: Optional[str] = None) -> TrainContext:
+    """Common setup of both trainers; `initial_model` is the first stage's
+    architecture where it differs from `args.model`."""
     device = default_device()
     if args.num_classes is None:
         args.num_classes = 1000
+    name = initial_model or args.model
     ctx = TrainContext(
         args=args, device=device,
-        data_config=resolve_data_config(args, create_model(args.model).default_cfg),
+        data_config=resolve_data_config(args, create_model(name).default_cfg),
         schedule=create_scheduler(args),
         ema_decays=tuple(args.model_ema_decay) if args.model_ema else (),
         train_loss=build_train_loss(args), args_text=args_text, output_dir=output_dir)
-    init_model_state(ctx, args.model, args.drop_path or 0.0, args.seed)
+    init_model_state(ctx, name, args.drop_path or 0.0, args.seed)
     return ctx
 
 
@@ -146,6 +155,27 @@ def make_eval_loader(ctx: TrainContext) -> Loader:
         is_training=False, crop_pct=ctx.data_config["crop_pct"],
         interpolation=ctx.data_config["interpolation"], mean=ctx.data_config["mean"],
         std=ctx.data_config["std"], num_workers=args.workers)
+
+
+def make_search_loader(ctx: TrainContext) -> Loader:
+    """Fixed-augmentation loader for comparable search loss probes. Inline
+    (no worker pool): it only ever yields the few probe batches of
+    `prog/autogrow.py:take_probe_batches`."""
+    args = ctx.args
+    ds = create_dataset(
+        args.dataset, args.data_dir, split=args.train_split, is_training=True,
+        fixed_aug=True, token_label_root=args.token_label_data,
+        num_classes=args.num_classes, fake_size=args.fake_data_size,
+        image_size=ctx.data_config["input_size"][-1], seed=args.seed,
+        dataset_size=getattr(args, "dataset_size", 0))
+    batch = max(args.batch_size // max(args.batch_splits_list[-1], 1), 1) \
+        if hasattr(args, "batch_splits_list") else args.batch_size
+    return create_loader(
+        ds, input_size=ctx.data_config["input_size"][-1], batch_size=max(batch, 1),
+        is_training=True, re_prob=0.0, scale=args.scale, ratio=args.ratio,
+        hflip=args.hflip, vflip=args.vflip, auto_augment=args.aa,
+        interpolation=args.train_interpolation, mean=ctx.data_config["mean"],
+        std=ctx.data_config["std"], num_workers=0, seed=args.seed)
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -249,6 +279,75 @@ def evaluate_all(ctx: TrainContext, loader: Loader, *, keep=None
                                 log_suffix=suffix))
         names.append(eval_metric + suffix)
     return metrics, names
+
+
+# ------------------------------------------------------------- stage rebuild
+
+
+def create_stage_model_and_state(ctx: TrainContext, new_model_name: str, *, dp: float,
+                                 load: str, origin_l: int = 0,
+                                 seed_offset: int = 0) -> None:
+    """Grow or shrink into a new architecture: build the new model, remap
+    the weights and every EMA tree, reset the optimizer moments, keep the
+    step count and the global LR schedule."""
+    args = ctx.args
+    prev_state = ctx.state
+    prev_layers = tuple(ctx.mdef.arch.layers)
+    prev_params = {n: p.detach() for n, p in prev_state.params.items()}
+    prev_ema = prev_state.ema_params
+
+    init_model_state(ctx, new_model_name, dp, args.seed + 1000 + seed_offset)
+    new_layers = tuple(ctx.mdef.arch.layers)
+    template = {n: p.detach() for n, p in ctx.state.params.items()}
+    grow = dict(src_layers=prev_layers, dst_layers=new_layers)
+
+    if load == "slice":
+        explicit = getattr(args, "grow_mode", "")
+        noise_rng = torch.Generator().manual_seed(args.seed + 777)
+        if explicit:
+            _logger.info("growing model with explicit mode %r", explicit)
+            kw, src = {}, prev_params
+            if explicit == "clone_ema":
+                if len(prev_ema) <= 3:
+                    raise SystemExit("--grow-mode clone_ema needs >= 4 EMA decays")
+                kw, src = dict(ema_trees=list(prev_ema[:3])), prev_ema[3]
+            if explicit == "clone_noise":
+                kw = dict(rng=noise_rng)
+            new_params = grow_params(src, template, mode=explicit, **grow, **kw)
+        elif args.load_with_clone_ema and len(prev_ema) > 3:
+            _logger.info("growing model with clone-ema stitching")
+            new_params = grow_params(prev_ema[3], template, mode="clone_ema",
+                                     ema_trees=list(prev_ema[:3]), **grow)
+        elif args.load_with_clone or args.load_with_clone_ema:
+            _logger.info("growing model with clone+noise")
+            new_params = grow_params(prev_params, template, mode="clone_noise",
+                                     rng=noise_rng, **grow)
+        else:
+            new_params = grow_params(prev_params, template, mode="clone", **grow)
+        # each EMA tree grows against its own template
+        new_ema = tuple(grow_params(e, ctx.state.ema_params[i], mode="clone", **grow)
+                        for i, e in enumerate(prev_ema))
+    elif load == "super":
+        shrink = dict(base_layers=new_layers, super_layers=prev_layers,
+                      dst_layers=new_layers, base_l=origin_l, super_l=sum(prev_layers),
+                      dst_l=sum(new_layers), family=getattr(ctx.mdef.arch, "family", "volo"))
+        new_params = shrink_params(prev_params, template, **shrink)
+        new_ema = tuple(shrink_params(e, ctx.state.ema_params[i], **shrink)
+                        for i, e in enumerate(prev_ema))
+    elif load == "":
+        return  # fresh init
+    else:
+        raise ValueError(f"unknown load mode {load!r}")
+
+    new_stats = grow_batch_stats(prev_state.batch_stats, ctx.state.batch_stats, **grow)
+    with torch.no_grad():
+        # in place: the new optimizer already holds these parameters
+        for n, p in ctx.state.model.named_parameters():
+            p.copy_(new_params[n])
+        for n, b in ctx.state.model.named_buffers():
+            b.copy_(new_stats[n])
+    ctx.state.ema_params = new_ema
+    ctx.state.step = prev_state.step
 
 
 def ckpt_payload(ctx: TrainContext, stage_info: Dict[str, Any]) -> Dict[str, Any]:

@@ -3,7 +3,8 @@
     python -m autoprog_tpu_torch.main synthetic:// --model volo_d1 \
         --token-label --token-label-data synthetic --model-ema ...
 
-Same flags as the JAX trainer (`autoprog_tpu.config`). The device is
+The flags are the port's own `config.py` (a copy of the JAX package's, so
+both trainers take the same command line). The device is
 `AUTOPROG_TORCH_DEVICE` (default cuda; see platform.py). Flags whose
 machinery is not ported raise NotImplementedError naming the flag.
 """
@@ -14,9 +15,9 @@ import logging
 import os
 import sys
 
-from autoprog_tpu.config import parse_args, resolve_data_config
-from autoprog_tpu.utils.logging import make_output_dir, setup_logging, update_summary
-from autoprog_tpu.utils.meters import AverageMeter
+from autoprog_tpu_torch.config import parse_args, resolve_data_config
+from autoprog_tpu_torch.utils.logging import make_output_dir, setup_logging, update_summary
+from autoprog_tpu_torch.utils.meters import AverageMeter
 from autoprog_tpu_torch import engine
 from autoprog_tpu_torch.registry import create_model
 from autoprog_tpu_torch.train.checkpoint import CheckpointSaver

@@ -13,8 +13,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from autoprog_tpu.config import parse_variant_name
-from autoprog_tpu.prog.depth import volo_depth_split
+from autoprog_tpu_torch.config import parse_variant_name
+from autoprog_tpu_torch.prog.depth import volo_depth_split
 from autoprog_tpu_torch.models.volo import VOLO
 from autoprog_tpu_torch.registry import register_model
 

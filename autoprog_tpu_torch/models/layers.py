@@ -213,14 +213,24 @@ class Attention(nn.Module):
         return dropout(self.proj(out), self.proj_drop, train, gen)
 
 
-def _use_fused_outlook() -> bool:
-    """AUTOPROG_FUSED_OUTLOOK=1 asks for the fused outlook kernel (K2),
-    which is not ported: refuse rather than ignore the request."""
-    if os.environ.get("AUTOPROG_FUSED_OUTLOOK", "0") == "1":
-        raise NotImplementedError(
-            "AUTOPROG_FUSED_OUTLOOK=1: the fused outlook kernel (K2, "
-            "autoprog_tpu/ops/outlook_pallas.py) is not ported yet")
-    return False
+def _use_fused_outlook(kernel_size: int, stride: int, padding: int,
+                       H: int, W: int, device: torch.device) -> bool:
+    """Route outlook attention through the fused kernel (K2,
+    ops/outlook_fused.py), the counterpart of `autoprog_tpu/models/layers.py:
+    _use_fused_outlook`: AUTOPROG_FUSED_OUTLOOK = 1 | 0, and kernel 3,
+    stride 2, padding 1, even H and W.
+
+    The default is 1 for CUDA tensors and 0, the reference's, for CPU
+    tensors. On an NVIDIA H100 80GB HBM3 at a power limit of 700.00 W the
+    full volo_d1 train step at batch 128, 224 px, bf16 took 97.89 and 98.63 ms
+    with K2 against 129.48 and 130.42 ms without (`chip_smoke.py`, the order
+    0, 1, 1, 0): 24.4 % faster in both repetitions. In bf16 the two paths
+    round at different points by design (see ops/outlook_fused.py)."""
+    default = "1" if device.type == "cuda" else "0"
+    mode = os.environ.get("AUTOPROG_FUSED_OUTLOOK", default)
+    supported = (kernel_size == 3 and stride == 2 and padding == 1
+                 and H % 2 == 0 and W % 2 == 0)
+    return mode == "1" and supported
 
 
 class OutlookAttention(nn.Module):
@@ -245,10 +255,15 @@ class OutlookAttention(nn.Module):
         logits = self.attn(avg_pool_ceil(x, self.stride))
         if self.attn_drop:
             raise NotImplementedError("attn_drop>0 unsupported in fused outlook op")
-        _use_fused_outlook()
-        out = outlook_attention(v, logits, num_heads=self.num_heads,
-                                kernel_size=self.kernel_size, stride=self.stride,
-                                padding=self.padding, scale=head_dim ** -0.5)
+        if _use_fused_outlook(self.kernel_size, self.stride, self.padding,
+                              x.shape[1], x.shape[2], x.device):
+            from autoprog_tpu_torch.ops.outlook_fused import outlook_attention_fused
+            out = outlook_attention_fused(v.contiguous(), logits.contiguous(),
+                                          self.num_heads, head_dim ** -0.5)
+        else:
+            out = outlook_attention(v, logits, num_heads=self.num_heads,
+                                    kernel_size=self.kernel_size, stride=self.stride,
+                                    padding=self.padding, scale=head_dim ** -0.5)
         return dropout(self.proj(out), self.proj_drop, train, gen)
 
 

@@ -2,8 +2,8 @@
 
 The default (XLA) path of the JAX package: unfold -> softmax over each
 window's k^2 x k^2 logits -> attend -> fold. Plain PyTorch; autograd gives
-the backward. The fused Pallas kernel (K2, `ops/outlook_pallas.py`) is off
-by default in the JAX package and is not ported yet.
+the backward. The fused kernels (K2, K3, K4) are `ops/outlook_fused.py`;
+`models/layers.py` routes to K2 under AUTOPROG_FUSED_OUTLOOK=1.
 """
 
 from __future__ import annotations

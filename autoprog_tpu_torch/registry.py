@@ -25,7 +25,7 @@ def list_models() -> List[str]:
 def create_model(model_name: str, **kwargs):
     """A `ModelDef` (models/factory.py) for a registered or variant name."""
     import autoprog_tpu_torch.models  # noqa: F401
-    from autoprog_tpu.config import is_variant_name
+    from autoprog_tpu_torch.config import is_variant_name
 
     if model_name in _REGISTRY:
         return _REGISTRY[model_name](**kwargs)

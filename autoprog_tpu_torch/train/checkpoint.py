@@ -52,19 +52,22 @@ class CheckpointSaver:
         return a < b if self.decreasing else a > b
 
     def save_checkpoint(self, payload: Dict[str, Any], epoch: int,
-                        metric: Optional[float] = None
+                        metric: Optional[float] = None, prefix: str = ""
                         ) -> Tuple[Optional[float], Optional[int]]:
-        """Write last + ranked snapshot; returns (best_metric, best_epoch)."""
+        """Write last + ranked snapshot; returns (best_metric, best_epoch).
+        `prefix` names a separate series (the supernet search's "-search")."""
         payload = dict(payload, epoch=epoch, metric=metric, version=2)
-        last = os.path.join(self.checkpoint_dir, f"last{CKPT_EXT}")
+        last = os.path.join(self.checkpoint_dir, f"last{prefix}{CKPT_EXT}")
         save_checkpoint_file(last, payload)
         if epoch % NO_DEL_INTERVAL == 0:
-            self._link(last, os.path.join(self.checkpoint_dir, f"keep-{epoch}{CKPT_EXT}"))
+            self._link(last, os.path.join(self.checkpoint_dir,
+                                          f"keep-{epoch}{prefix}{CKPT_EXT}"))
         worse_than_all = (len(self.checkpoint_files) >= self.max_history
                           and metric is not None
                           and not self._cmp(metric, self.checkpoint_files[-1][1]))
         if not worse_than_all:
-            snap = os.path.join(self.checkpoint_dir, f"checkpoint-{epoch}{CKPT_EXT}")
+            snap = os.path.join(self.checkpoint_dir,
+                                f"checkpoint-{epoch}{prefix}{CKPT_EXT}")
             self._link(last, snap)
             self.checkpoint_files.append((snap, metric if metric is not None
                                           else float("-inf")))

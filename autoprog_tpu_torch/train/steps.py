@@ -10,10 +10,18 @@ cache: (r, keep, splits) are arguments of the call.
 
 Randomness: DropPath/dropout draw from `drop_gen` (on the device) and the
 MixToken box from `mix_gen` (on the host), both seeded from the run seed.
+
+The search probes (`loss_probe_step`, `throughput_probe_step`,
+`chained_throughput_probe`) run the model in train mode without changing
+the training state: BatchNorm running stats are put back afterwards,
+gradients are discarded, no optimizer step is taken, and the caller passes
+the generators, so that every candidate sees the same draws.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -39,6 +47,19 @@ def metrics_from_logits(logits: torch.Tensor, labels: torch.Tensor) -> Dict[str,
     return {"loss_sum": torch.where(valid, loss, torch.zeros_like(loss)).sum(),
             "top1_sum": top1.sum().float(), "top5_sum": top5.sum().float(),
             "count": valid.sum().float()}
+
+
+@contextlib.contextmanager
+def _buffers_restored(model: torch.nn.Module):
+    """Put the model's buffers (BatchNorm running stats) back on exit: a
+    train-mode forward updates them in place."""
+    saved = [b.clone() for b in model.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, old in zip(model.buffers(), saved):
+                b.copy_(old)
 
 
 class StepBuilder:
@@ -117,3 +138,71 @@ class StepBuilder:
         if isinstance(logits, tuple):
             logits = logits[0]
         return metrics_from_logits(logits, batch["label"])
+
+    # ------------------------------------------------------- search probes
+
+    def _probe_forward(self, state, images, r, keep, params, drop_gen, mix_gen):
+        kwargs = {"train": True, "keep": keep, "drop_gen": drop_gen or self.drop_gen,
+                  "mix_gen": mix_gen or self.mix_gen}
+        x = resize_bilinear(images, r)
+        if params is None:
+            return state.model(x, **kwargs)
+        return torch.func.functional_call(state.model, params, (x,), kwargs)
+
+    @torch.no_grad()
+    def loss_probe_step(self, state: TrainState, batch: Dict[str, torch.Tensor], *, r: int,
+                        keep=None, params: Optional[Dict[str, torch.Tensor]] = None,
+                        drop_gen: Optional[torch.Generator] = None,
+                        mix_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Train-mode forward, hard-label CE on the cls logits, batch mean:
+        the search loss probe. `params` (an EMA tree) replaces the model's
+        parameters for this call. A device scalar; no host sync."""
+        with _buffers_restored(state.model):
+            out = self._probe_forward(state, batch["image"], r, keep, params,
+                                      drop_gen, mix_gen)
+        logits = out[0] if isinstance(out, tuple) else out
+        return _ce_per_sample(logits, batch["label"]).mean()
+
+    def throughput_probe_step(self, state: TrainState, batch: Dict[str, torch.Tensor], *,
+                              r: int, keep=None,
+                              params: Optional[Dict[str, torch.Tensor]] = None,
+                              drop_gen: Optional[torch.Generator] = None,
+                              mix_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Forward + backward of the training loss without an optimizer
+        update; the gradients are discarded. Returns the loss (device
+        scalar)."""
+        if params is not None:
+            params = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        target = self.build_target(batch, r)
+        with _buffers_restored(state.model):
+            out = self._probe_forward(state, batch["image"], r, keep, params,
+                                      drop_gen, mix_gen)
+            loss = self.train_loss(out, target)
+            loss.backward()
+        state.model.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    def chained_throughput_probe(self, state: TrainState, batch: Dict[str, torch.Tensor], *,
+                                 r: int, keep=None, iters: int = 10, params=None,
+                                 drop_gen=None, mix_gen=None) -> float:
+        """Seconds per forward + backward step: one warm-up step, then
+        `iters` steps between two CUDA events (on the CPU, between two reads
+        of `time.perf_counter`). This is the time that feeds the grow
+        criterion."""
+        def step():
+            return self.throughput_probe_step(state, batch, r=r, keep=keep, params=params,
+                                              drop_gen=drop_gen, mix_gen=mix_gen)
+        step()
+        if batch["image"].device.type != "cuda":
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                step()
+            return (time.perf_counter() - t0) / iters
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            step()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters * 1e-3

@@ -3,26 +3,48 @@
 
     python3 chip_smoke.py
 
-Phases (each prints its lines; any failure exits non-zero):
+Phases (each prints its lines; any failure exits non-zero; nothing falls
+back to the CPU or to a plain twin):
   1. device: name, nvidia-smi name and power limit, TF32 flags (set off);
-  2. build: nvcc builds the CUDA kernels from csrc/ (build/kernels/);
-  3. kernel vs plain: K1 forward and backward against their plain PyTorch
-     twins at the volo_d1 shapes (B=32, C=384, 12 heads, n = 64/100/144/196)
-     and at the router's edge (n=1024, head_dim 128), bf16 and f32, and
-     with f32 scores at n=196; and the volo_d1 forward through K1 against
-     the unfused path (f32);
-  4. trainer: `autoprog_tpu_torch.main.main` on synthetic:// with volo_d1 at
-     224 px, batch 64, token labels, MixToken, drop-path 0.1 and 4 EMA
-     decays, 8 train steps and one eval pass; checks finite losses, the
-     kernel launch counts, the EMA trees and the eval line;
-  5. times (CUDA events / synchronised clock, after warm-up, bf16): K1
-     forward and backward against the plain twins at [128, 196, 384, 12
-     heads], and the full volo_d1 train step at batch 128, 224 px, with the
-     kernel and with AUTOPROG_FUSED_ATTN=0.
+  2. build: nvcc builds the CUDA kernels from csrc/ (build/kernels/), one
+     compiler process per source, all at once;
+  3. kernel vs plain, on the card, bf16 and f32, tolerance 2 ulp of the
+     largest value: K1 forward and backward at the volo_d1 shapes (B=32,
+     C=384, 12 heads, n = 64/100/144/196), at the router's edge (n=1024,
+     head_dim 128) and with f32 scores; K2 forward and backward at B=32,
+     C=192, 6 heads, H=W=16/20/24/28 and at an odd shape (H=10, W=6,
+     head_dim 48); K3 and K4 at n=196. Then the volo_d1 f32 forward through
+     K1 against the unfused MHSA, and with AUTOPROG_FUSED_OUTLOOK=1 against
+     =0 (1e-3);
+  4. fixed trainer: `autoprog_tpu_torch.main.main` on synthetic:// with
+     volo_d1 at 224 px, batch 64, token labels, MixToken, drop-path 0.1 and 4
+     EMA decays, on the port's defaults (K1 and K2 on), 4 train steps and one
+     eval pass; checks finite losses, the launch counts of K1 (14 per step)
+     and K2 (4 per step), the EMA trees and the eval line;
+  5. progressive trainer: `autoprog_tpu_torch.main_prog.main` with
+     `--auto-grow --num-stages 2` on volo_d1 at full width (224 px, batch 64,
+     token labels, MixToken, 4 EMA decays, clone-ema growth),
+     AUTOPROG_FUSED_OUTLOOK=1 and AUTOPROG_FUSED_ATTN=1: the supernet
+     search, its decision, the shrink and the growth to r=224, l=18; checks
+     finite losses, the decision line, the stage history and that K2's
+     backward ran once per outlooker layer of every train and timed-probe
+     step (4 per full-depth step) and K1's once per transformer layer (14);
+  6. times (CUDA events / synchronised clock, after warm-up, bf16), on the
+     card named beside them: K1 at [128, 196, 384, 12 heads] with
+     `F.scaled_dot_product_attention` as its library yardstick; one
+     outlooker layer's op at [128, 28, 28, 192] through the unfused path, K2,
+     K3 and K4, forward and forward + backward; the attend kernel alone;
+     and the full volo_d1 train step at batch 128, 224 px, K1 on against
+     AUTOPROG_FUSED_ATTN=0 and then AUTOPROG_FUSED_OUTLOOK 0, 1, 1, 0, with
+     peak memory.
 
-The line before the last is the kernel report (JSON); the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script exits 1
-before printing any result.
+The line before the last is the kernel report (JSON): for each kernel its
+launches on its path (K1 and K2: phases 4 and 5; K3, K4: the variants run
+of phase 6), its worst error against the twin, its time, the twin's,
+the least time the card could take (`bound_ms`, from the bytes it must move
+at 3.35 TB/s and its operations at the peak of their type) and the library
+call's time where one exists. The last line is {"ok": true, "device":
+{...}}. Without a CUDA device the script exits 1 before printing any result.
 """
 
 import glob
@@ -36,6 +58,11 @@ import tempfile
 import time
 
 TOL_ULPS = {"bfloat16": 2.0 ** -6, "float32": 2.0 ** -20}
+# published peaks of one H100 SXM: HBM bytes/s, dense bf16 tensor-core and
+# plain f32 FLOP/s
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+MHSA_SRC = "autoprog_tpu_torch/csrc/mhsa_qkv.cu"
+OUTLOOK_SRC = "autoprog_tpu_torch/csrc/outlook.cu"
 
 
 def fail(msg: str):
@@ -71,11 +98,13 @@ def phase_device(torch):
 def phase_build():
     from autoprog_tpu_torch import _build
     t0 = time.time()
-    lib = _build.build()
+    libs = _build.build()
     dt = time.time() - t0
     _build.load()
-    regs = re.findall(r"Used (\d+) registers", lib.with_suffix(".log").read_text())
-    say(f"phase 2 build: {lib.name} in {dt:.1f} s (registers per kernel: {regs})")
+    for lib in libs:
+        regs = re.findall(r"Used (\d+) registers", lib.with_suffix(".log").read_text())
+        say(f"phase 2 build: {lib.name} (registers per kernel: {regs})")
+    say(f"phase 2 build: {len(libs)} libraries in {dt:.1f} s, compiled side by side")
 
 
 def _err(got, ref):
@@ -122,6 +151,80 @@ def phase_kernels(torch):
     return worst
 
 
+def phase_outlook_kernels(torch):
+    """K2 forward and backward and the K3 / K4 attend against their plain
+    twins; same tolerance and reason as K1's."""
+    from autoprog_tpu_torch.ops import outlook_fused as O
+    worst = {"fwd": 0.0, "bwd": 0.0, "attend_hm": 0.0, "attend": 0.0}
+
+    def check(tag, key, got, want, dt_name):
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"{tag} {dt_name}: bad shape or non-finite")
+        e, tol = _err(got, want), _tol(want, dt_name)
+        say(f"phase 3 {tag} {dt_name}: max_abs_err {e:.3e} (tol {tol:.3e})")
+        if not e <= tol:
+            fail(f"{tag} disagrees with its plain twin: {e} > {tol}")
+        worst[key] = max(worst[key], e)
+
+    # (B, H, W, C, heads): the four stage resolutions of volo_d1 and an odd
+    # shape (H != W, head_dim 48)
+    shapes = [(32, r, r, 192, 6) for r in (16, 20, 24, 28)] + [(8, 10, 6, 96, 2)]
+    gen = torch.Generator("cuda").manual_seed(3)
+    for dt in (torch.bfloat16, torch.float32):
+        dt_name = str(dt).split(".")[-1]
+        for B, H, W, C, heads in shapes:
+            v = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dt)
+            logits = (2 * torch.randn(B, H // 2, W // 2, heads * 81, device="cuda",
+                                      generator=gen)).to(dt)
+            gout = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dt)
+            scale = (C // heads) ** -0.5
+            out = O._launch_fwd(v, logits, heads, scale)
+            dv, dlogits = O._launch_bwd(v, logits, gout, heads, scale)
+            torch.cuda.synchronize()
+            tag = f"B={B} H={H} W={W} C={C} heads={heads}"
+            check(f"K2 fwd {tag}", "fwd", out,
+                  O.outlook_attention_fused_reference(v, logits, heads, scale), dt_name)
+            rdv, rdl = O.outlook_attention_backward_reference(v, logits, gout, heads, scale)
+            check(f"K2 bwd dv {tag}", "bwd", dv, rdv, dt_name)
+            check(f"K2 bwd dlogits {tag}", "bwd", dlogits, rdl, dt_name)
+        B, H, C, heads = 32, 28, 192, 6
+        n = (H // 2) ** 2
+        patches = torch.randn(B, n, 9, C, device="cuda", generator=gen).to(dt)
+        att = (2 * torch.randn(B, n, 9, 9, heads, device="cuda", generator=gen)).to(dt)
+        for key, hm in (("attend_hm", True), ("attend", False)):
+            out = O._launch_attend(patches, att, heads, 32 ** -0.5, hm)
+            torch.cuda.synchronize()
+            check(f"{'K3' if hm else 'K4'} attend B={B} n={n} C={C} heads={heads}", key, out,
+                  O.outlook_attend_reference(patches, att, heads, 32 ** -0.5, hm), dt_name)
+    return worst
+
+
+def phase_outlook_model_parity(torch):
+    """volo_d1 eval logits with AUTOPROG_FUSED_OUTLOOK=1 against =0, f32, 4
+    images: in f32 both paths compute the same formula; tolerance 1e-3."""
+    from autoprog_tpu_torch import create_model
+    from autoprog_tpu_torch.ops.outlook_fused import LAUNCHES
+    torch.manual_seed(0)
+    model = create_model("volo_d1").make(num_classes=1000, dtype=torch.float32).cuda()
+    x = torch.randn(4, 224, 224, 3, device="cuda")
+    before = LAUNCHES["fwd"]
+    with torch.no_grad():
+        os.environ["AUTOPROG_FUSED_OUTLOOK"] = "0"
+        plain = model(x, train=False)
+        os.environ["AUTOPROG_FUSED_OUTLOOK"] = "1"
+        fused = model(x, train=False)
+    del os.environ["AUTOPROG_FUSED_OUTLOOK"]
+    torch.cuda.synchronize()
+    e = _err(fused, plain)
+    say(f"phase 3 volo_d1 forward with AUTOPROG_FUSED_OUTLOOK=1 vs =0, f32: max_abs_err "
+        f"{e:.3e} (tol 1e-3, |logits| max {plain.abs().max().item():.3f})")
+    if LAUNCHES["fwd"] - before != 4:
+        fail("volo_d1 with AUTOPROG_FUSED_OUTLOOK=1 did not launch K2 in its 4 outlookers")
+    if not (torch.isfinite(fused).all() and e <= 1e-3):
+        fail("volo_d1 logits through K2 disagree with the unfused path")
+    del model
+
+
 def phase_model_parity(torch):
     """volo_d1 eval logits through K1 vs the unfused path, f32, 4 images:
     both are f32 formulas over the same weights; tolerance 1e-3 absolute on
@@ -144,9 +247,10 @@ def phase_model_parity(torch):
     del model
 
 
-def phase_trainer(torch, steps: int = 8, batch: int = 64):
+def phase_trainer(torch, steps: int = 4, batch: int = 64):
     from autoprog_tpu_torch.main import main
     from autoprog_tpu_torch.ops.attention import LAUNCHES
+    from autoprog_tpu_torch.ops.outlook_fused import LAUNCHES as OUTLOOK_LAUNCHES
     out = tempfile.mkdtemp(prefix="chip_smoke_")
     argv = ["synthetic://", "--model", "volo_d1", "--img-size", "224", "-b", str(batch),
             "--token-label", "--token-label-data", "synthetic", "--model-ema",
@@ -155,13 +259,17 @@ def phase_trainer(torch, steps: int = 8, batch: int = 64):
             "--cooldown-epochs", "0", "--lr", "1e-3", "--fake-data-size",
             str(steps * batch), "--workers", "6", "--log-interval", "1",
             "--output", out]
-    os.environ["AUTOPROG_FUSED_ATTN"] = "1"
-    LAUNCHES["fwd"] = LAUNCHES["bwd"] = 0
+    # the port's defaults on the card: K1 and K2 both on
+    os.environ.pop("AUTOPROG_FUSED_ATTN", None)
+    os.environ.pop("AUTOPROG_FUSED_OUTLOOK", None)
+    for counts in (LAUNCHES, OUTLOOK_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     t0 = time.time()
     best = main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = dict(LAUNCHES)
+    launches, outlook = dict(LAUNCHES), dict(OUTLOOK_LAUNCHES)
     run = glob.glob(os.path.join(out, "train", "*"))[0]
     log = open(os.path.join(run, "log.txt")).read()
     losses = [float(v) for v in re.findall(r"Train: 0 \[\s*\d+/\d+\]\s+Loss: (\S+)", log)]
@@ -175,6 +283,10 @@ def phase_trainer(torch, steps: int = 8, batch: int = 64):
         f"= {n_attn})")
     if launches["bwd"] != n_attn or launches["fwd"] < n_attn:
         fail(f"K1 launches {launches} do not cover 14 layers x {steps} steps")
+    say(f"phase 4 launches: K2 {outlook} (train steps {steps} x 4 outlooker layers "
+        f"= {4 * steps})")
+    if outlook["bwd"] != 4 * steps or outlook["fwd"] < 4 * steps:
+        fail(f"K2 launches {outlook} do not cover 4 layers x {steps} steps")
     tests = [ln for ln in log.splitlines() if re.search(r"Test(_EMA_\S+)?: loss", ln)]
     for ln in tests:
         say("phase 4 eval: " + ln.split("autoprog_tpu_torch: ")[-1])
@@ -192,7 +304,90 @@ def phase_trainer(torch, steps: int = 8, batch: int = 64):
         f"min |ema_i - ema_j| = {min(d_e):.3e}")
     if min(d_p) <= 0 or min(d_e) <= 0:
         fail("EMA trees equal the params or each other")
-    return launches
+    return launches, outlook
+
+
+def phase_prog_trainer(torch, steps: int = 5, batch: int = 64):
+    """The progressive trainer with the supernet search, at full width."""
+    from autoprog_tpu_torch import main_prog
+    from autoprog_tpu_torch.ops import attention as A
+    from autoprog_tpu_torch.ops import outlook_fused as O
+    from autoprog_tpu_torch.prog.depth import elastic_keep_masks
+    out = tempfile.mkdtemp(prefix="chip_smoke_prog_")
+    time_iters = 3
+    argv = ["synthetic://", "--model", "volo_d1", "--img-size", "224", "-b", str(batch),
+            "--token-label", "--token-label-data", "synthetic", "--model-ema",
+            "--model-ema-decay", "0.998", "0.9986", "0.999", "0.9996",
+            "--drop-path", "0.1", "--epochs", "4", "--warmup-epochs", "0",
+            "--cooldown-epochs", "0", "--lr", "1e-3", "--fake-data-size",
+            str(steps * batch), "--workers", "6", "--log-interval", "1",
+            "--auto-grow", "--num-stages", "2", "--r-scale", "0.5", "--l-scale", "0.5",
+            "--search-epochs", "1", "--search-probe-steps", "3", "--search-time-iters",
+            str(time_iters), "--load-with-clone-ema", "--output", out]
+    os.environ["AUTOPROG_FUSED_ATTN"] = "1"
+    os.environ["AUTOPROG_FUSED_OUTLOOK"] = "1"
+    for counts in (A.LAUNCHES, O.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    t0 = time.time()
+    best = main_prog.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    del os.environ["AUTOPROG_FUSED_OUTLOOK"]
+    k1, k2 = dict(A.LAUNCHES), dict(O.LAUNCHES)
+    run = glob.glob(os.path.join(out, "train", "*"))[0]
+    log = open(os.path.join(run, "log.txt")).read()
+    say(f"phase 5 prog trainer: python -m autoprog_tpu_torch.main_prog "
+        f"{' '.join(argv[:-2])} ({wall:.1f} s incl. data, search, eval and checkpoints)")
+    hist = main_prog.LAST_CTX.stage_history
+    for h in hist:
+        say(f"phase 5 stage: epoch {h['epoch']} r={h['r']} l={h['l']} dp={float(h['dp']):.2f}")
+    decision = re.findall(r"auto grow decision: r=(\d+) l=(\d+)", log)
+    table = re.findall(r"search w=.*", log)
+    say(f"phase 5 search: {table[-1] if table else 'no score line'}")
+    if len(decision) != 1:
+        fail(f"expected one 'auto grow decision' line, got {decision}")
+    best_r, best_l = int(decision[0][0]), int(decision[0][1])
+    say(f"phase 5 auto grow decision: r={best_r} l={best_l}")
+    if best_r not in (128, 224) or best_l not in (9, 18):
+        fail("the decision lies outside the candidate window")
+    if (hist[1]["r"], hist[1]["l"]) != (best_r, best_l) or \
+            (hist[-1]["r"], hist[-1]["l"]) != (224, 18):
+        fail(f"stage history {hist} does not follow the decision to r=224, l=18")
+    sampled = [int(l) for l in re.findall(r"TrainSuper: 0 \[\s*\d+/\d+\] sampled r\d+ l(\d+)",
+                                           log)]
+    losses = [float(v) for v in re.findall(r"Train: \d+ \[\s*\d+/\d+\]\s+Loss: (\S+)", log)]
+    grid = [float(v) for line in re.findall(r"All Loss: (.*)", log)
+            for v in re.findall(r": ([^;\s]+)", line)]
+    say(f"phase 5 losses after the search: {losses}")
+    if len(sampled) != steps or len(losses) != 3 * steps or \
+            not all(math.isfinite(v) for v in losses + grid) or best is None:
+        fail(f"expected {steps} supernet steps and {3 * steps} finite losses, got "
+             f"{sampled} and {losses}")
+    # one K2 backward per active outlooker layer and one K1 backward per
+    # active transformer layer of every step that runs a backward: the
+    # supernet's train steps, the timed probes (a warm-up + time_iters steps
+    # per candidate) and the train steps of the three epochs after the search
+    layers = {l: tuple(sum(k) for k in elastic_keep_masks(l, 9, 18)) for l in (9, 18)}
+    probe_steps = (1 + time_iters) * 2                   # two resolutions per depth
+    backward = [layers[l] for l in sampled] + [layers[9]] * probe_steps + \
+        [layers[18]] * probe_steps + [layers[best_l]] * steps + [(4, 14)] * (2 * steps)
+    want_k2, want_k1 = sum(b[0] for b in backward), sum(b[1] for b in backward)
+    say(f"phase 5 launches: K2 {k2}, K1 {k1}; backward steps {len(backward)} of which "
+        f"{2 * steps} at full depth (4 outlookers, 14 transformer layers each); expected "
+        f"K2 bwd {want_k2}, K1 bwd {want_k1}")
+    if k2["bwd"] != want_k2 or k2["fwd"] < want_k2:
+        fail(f"K2 launches {k2} do not cover every outlooker layer of every step")
+    if k1["bwd"] != want_k1 or k1["fwd"] < want_k1:
+        fail(f"K1 launches {k1} do not cover every transformer layer of every step")
+    for name in ("last-search.ckpt", "last.ckpt"):
+        if not os.path.exists(os.path.join(run, name)):
+            fail(f"{name} was not written")
+    ckpt = torch.load(os.path.join(run, "last.ckpt"), map_location="cpu", weights_only=False)
+    if ckpt["arch"] != "volo_h12_l18" or ckpt["stage_info"]["l"] != 18 or \
+            not all(torch.isfinite(v).all() for v in ckpt["state_dict"].values()):
+        fail("last.ckpt does not hold a finite volo_h12_l18")
+    return k1, k2
 
 
 def _time_cuda(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -209,24 +404,128 @@ def _time_cuda(torch, fn, iters: int, warmup: int = 3) -> float:
 
 
 def phase_kernel_times(torch, card):
+    """K1 at the volo_d1 shape, with `F.scaled_dot_product_attention` (one
+    PyTorch call for the same function, used nowhere in the port) beside it."""
+    import torch.nn.functional as F
     from autoprog_tpu_torch.ops import attention as A
     B, n, H, d = 128, 196, 12, 32
     gen = torch.Generator("cuda").manual_seed(1)
     qkv = torch.randn(B, n, 3 * H * d, device="cuda", generator=gen).bfloat16()
     dout = torch.randn(B, n, H * d, device="cuda", generator=gen).bfloat16()
     scale = d ** -0.5
+
+    def sdpa(x):
+        q, k, v = x.view(B, n, 3, H, d).permute(2, 0, 3, 1, 4).unbind(0)
+        o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        return o.permute(0, 2, 1, 3).reshape(B, n, H * d)
+
+    leaf = qkv.clone().requires_grad_(True)
+    lib_out = sdpa(leaf)
     t = {
         "fwd": _time_cuda(torch, lambda: A._launch_fwd(qkv, H, scale, False), 50),
         "plain_fwd": _time_cuda(torch, lambda: A.mhsa_fused_qkv_reference(qkv, H, scale), 20),
         "bwd": _time_cuda(torch, lambda: A._launch_bwd(qkv, dout, H, scale, False), 50),
         "plain_bwd": _time_cuda(
             torch, lambda: A.mhsa_fused_qkv_backward_reference(qkv, dout, H, scale), 20),
+        "lib_fwd": _time_cuda(torch, lambda: sdpa(qkv), 50),
+        "lib_bwd": _time_cuda(torch, lambda: torch.autograd.grad(
+            lib_out, leaf, dout, retain_graph=True), 50),
     }
-    say(f"phase 5 K1 [B={B}, n={n}, C={H * d}, heads={H}] bf16 on {card}: "
-        f"fwd {t['fwd']:.4f} ms (plain {t['plain_fwd']:.4f} ms), "
-        f"bwd {t['bwd']:.4f} ms (plain {t['plain_bwd']:.4f} ms), "
-        f"fwd+bwd {t['fwd'] + t['bwd']:.4f} ms (plain {t['plain_fwd'] + t['plain_bwd']:.4f} ms)")
+    # least time: 2 n^2 d FLOP per product and head (2 products forward, 5
+    # backward with the recomputed scores) at the bf16 peak, against qkv and
+    # out (forward) or qkv, dout and dqkv (backward) moved once
+    C, item = H * d, 2
+    prod = 2 * n * n * d * H * B
+    t["bound_fwd"], t["by_fwd"] = _bound(4 * B * n * C * item, 2 * prod, BF16_FLOPS)
+    t["bound_bwd"], t["by_bwd"] = _bound(7 * B * n * C * item, 5 * prod, BF16_FLOPS)
+    say(f"phase 6 K1 [B={B}, n={n}, C={C}, heads={H}] bf16 on {card}: "
+        f"fwd {t['fwd']:.4f} ms (plain {t['plain_fwd']:.4f}, SDPA {t['lib_fwd']:.4f}, bound "
+        f"{t['bound_fwd']:.4f} by {t['by_fwd']}), bwd {t['bwd']:.4f} ms (plain "
+        f"{t['plain_bwd']:.4f}, SDPA backward {t['lib_bwd']:.4f}, bound {t['bound_bwd']:.4f} "
+        f"by {t['by_bwd']})")
     return t
+
+
+def _bound(nbytes: float, flops: float, peak: float):
+    """(least ms, what sets it): bytes over the HBM rate against operations
+    over the peak of their type."""
+    by_bytes, by_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def phase_outlook_times(torch, card):
+    """One outlooker layer's op at the volo_d1 shape through the unfused
+    path, K2, K3 and K4 (forward, and forward + backward through autograd),
+    then each kernel alone beside its plain twin. The K3 / K4 launch counts
+    of the report are read over this phase's variants run."""
+    from autoprog_tpu_torch.ops import outlook_fused as O
+    from autoprog_tpu_torch.ops.outlook import outlook_attention
+    B, H, C, heads = 128, 28, 192, 6
+    d, n = C // heads, (H // 2) ** 2
+    scale = d ** -0.5
+    gen = torch.Generator("cuda").manual_seed(4)
+    v = torch.randn(B, H, H, C, device="cuda", generator=gen).bfloat16()
+    logits = (2 * torch.randn(B, H // 2, H // 2, heads * 81, device="cuda",
+                              generator=gen)).bfloat16()
+    gout = torch.randn(B, H, H, C, device="cuda", generator=gen).bfloat16()
+    ops = {
+        "unfused": lambda a, b: outlook_attention(a, b, num_heads=heads, kernel_size=3,
+                                                  stride=2, padding=1, scale=scale),
+        "K2": lambda a, b: O.outlook_attention_fused(a, b, heads, scale),
+        "K3": lambda a, b: O.outlook_attention_hybrid(a, b, heads, scale),
+        "K4": lambda a, b: O.outlook_attention_hybrid2(a, b, heads, scale),
+    }
+    for k in O.LAUNCHES:
+        O.LAUNCHES[k] = 0
+    vr, lr = v.clone().requires_grad_(True), logits.clone().requires_grad_(True)
+
+    def fwd_bwd(op):
+        vr.grad = lr.grad = None
+        op(vr, lr).backward(gout)
+
+    res = {}
+    for name, op in ops.items():
+        with torch.no_grad():
+            f = _time_cuda(torch, lambda: op(v, logits), 20)
+        fb = _time_cuda(torch, lambda: fwd_bwd(op), 20)
+        res[name] = (f, fb)
+        say(f"phase 6 outlook op [B={B}, {H}x{H}, C={C}, heads={heads}] bf16 on {card}: "
+            f"{name} forward {f:.4f} ms, forward + backward {fb:.4f} ms")
+    variants = dict(O.LAUNCHES)
+    say(f"phase 6 variants run launches: {variants}")
+    if not all(variants[k] > 0 for k in ("fwd", "bwd", "attend_hm", "attend")):
+        fail(f"the variants run did not go through every outlook kernel: {variants}")
+
+    patches = torch.randn(B, n, 9, C, device="cuda", generator=gen).bfloat16()
+    att = (2 * torch.randn(B, n, 9, 9, heads, device="cuda", generator=gen)).bfloat16()
+    t = {
+        "fwd": _time_cuda(torch, lambda: O._launch_fwd(v, logits, heads, scale), 50),
+        "plain_fwd": _time_cuda(
+            torch, lambda: O.outlook_attention_fused_reference(v, logits, heads, scale), 10),
+        "bwd": _time_cuda(torch, lambda: O._launch_bwd(v, logits, gout, heads, scale), 50),
+        "plain_bwd": _time_cuda(torch, lambda: O.outlook_attention_backward_reference(
+            v, logits, gout, heads, scale), 10),
+    }
+    for key, hm in (("attend_hm", True), ("attend", False)):
+        t[key] = _time_cuda(torch, lambda: O._launch_attend(patches, att, heads, scale, hm), 50)
+        t["plain_" + key] = _time_cuda(
+            torch, lambda: O.outlook_attend_reference(patches, att, heads, scale, hm), 5)
+    # bytes: every input read once, every output written once; operations:
+    # 81 multiply-adds per window, head and channel of the head, in f32
+    item = 2
+    map_b, log_b, patch_b = B * H * H * C * item, B * n * heads * 81 * item, B * n * 9 * C * item
+    attend_flops = 2 * B * n * 81 * C
+    t["bound_fwd"], t["by_fwd"] = _bound(2 * map_b + log_b, attend_flops, F32_FLOPS)
+    t["bound_bwd"], t["by_bwd"] = _bound(3 * map_b + 2 * log_b, 2 * attend_flops, F32_FLOPS)
+    for key in ("attend_hm", "attend"):
+        t["bound_" + key], t["by_" + key] = _bound(2 * patch_b + log_b, attend_flops,
+                                                   F32_FLOPS)
+    say(f"phase 6 K2 alone on {card}: fwd {t['fwd']:.4f} ms (plain {t['plain_fwd']:.4f}, "
+        f"bound {t['bound_fwd']:.4f} by {t['by_fwd']}), bwd {t['bwd']:.4f} ms (plain "
+        f"{t['plain_bwd']:.4f}, bound {t['bound_bwd']:.4f} by {t['by_bwd']}); attend K3 "
+        f"{t['attend_hm']:.4f} ms (plain {t['plain_attend_hm']:.4f}), K4 {t['attend']:.4f} ms "
+        f"(plain {t['plain_attend']:.4f}, bound {t['bound_attend']:.4f} by {t['by_attend']})")
+    return t, variants
 
 
 def phase_step_times(torch, card, batch: int = 128, iters: int = 10):
@@ -259,8 +558,8 @@ def phase_step_times(torch, card, batch: int = 128, iters: int = 10):
             "label_inds": torch.randint(0, 1000, (batch, 5, 14, 14), device="cuda",
                                         generator=g, dtype=torch.int32)}
 
-    def run(fused: str) -> float:
-        os.environ["AUTOPROG_FUSED_ATTN"] = fused
+    def run(var: str, value: str) -> float:
+        os.environ[var] = value
         for _ in range(3):
             sb.train_step(state, data, 1e-3, r=224)
         torch.cuda.synchronize()
@@ -269,20 +568,41 @@ def phase_step_times(torch, card, batch: int = 128, iters: int = 10):
             loss = sb.train_step(state, data, 1e-3, r=224)["loss"]
         torch.cuda.synchronize()
         if not math.isfinite(float(loss)):
-            fail(f"non-finite loss in the timed steps (AUTOPROG_FUSED_ATTN={fused})")
+            fail(f"non-finite loss in the timed steps ({var}={value})")
         return (time.perf_counter() - t0) / iters * 1e3
 
-    torch.cuda.reset_peak_memory_stats()
-    ms = {"0": [], "1": []}
-    for fused in ("0", "1", "1", "0"):
-        ms[fused].append(run(fused))
+    def compare(var: str, note: str):
+        torch.cuda.reset_peak_memory_stats()
+        ms, peak = {"0": [], "1": []}, {}
+        for value in ("0", "1", "1", "0"):
+            ms[value].append(run(var, value))
+            peak[value] = torch.cuda.max_memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()
+        on, off = sum(ms["1"]) / 2, sum(ms["0"]) / 2
+        say(f"phase 6 volo_d1 train step b={batch} 224px bf16 on {card}, {note}: "
+            f"{var}=1 {on:.2f} ms ({batch / on * 1e3:.1f} img/s; runs {ms['1']}; peak "
+            f"{peak['1']:.2f} GiB), =0 {off:.2f} ms ({batch / off * 1e3:.1f} img/s; runs "
+            f"{ms['0']}; peak {peak['0']:.2f} GiB)")
+        return ms
+
+    os.environ["AUTOPROG_FUSED_OUTLOOK"] = "0"
+    compare("AUTOPROG_FUSED_ATTN", "unfused outlook")
     os.environ["AUTOPROG_FUSED_ATTN"] = "1"
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    k, p = sum(ms["1"]) / 2, sum(ms["0"]) / 2
-    say(f"phase 5 volo_d1 train step b={batch} 224px bf16 on {card}: "
-        f"kernel {k:.2f} ms ({batch / k * 1e3:.1f} img/s; runs {ms['1']}), "
-        f"AUTOPROG_FUSED_ATTN=0 {p:.2f} ms ({batch / p * 1e3:.1f} img/s; runs {ms['0']}); "
-        f"peak device memory {peak:.2f} GiB")
+    ms = compare("AUTOPROG_FUSED_OUTLOOK", "K1 on")
+    del os.environ["AUTOPROG_FUSED_OUTLOOK"]
+    # runs in the order 0, 1, 1, 0: each =1 run beside the =0 run next to it
+    gains = [1.0 - on / off for on, off in zip(ms["1"], ms["0"])]
+    verdict = "both" if min(gains) >= 0.02 else "not both"
+    say(f"phase 6 K2 in the step: {['%.1f %%' % (100 * g) for g in gains]} faster than the "
+        f"unfused outlook path in the two repetitions ({verdict} at least 2 %)")
+
+
+def _row(name, src, replaces, launches, err, t, key):
+    lib = t.get("lib_" + key)
+    return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": t[key],
+            "plain_ms": t["plain_" + key], "bound_ms": t["bound_" + key],
+            "bound_by": t["by_" + key], "library_ms": lib}
 
 
 def main():
@@ -294,24 +614,34 @@ def main():
         import autoprog_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"run from the root of the repository: {e}")
+    t_start = time.time()
     name, card = phase_device(torch)
     phase_build()
     worst = phase_kernels(torch)
+    worst_o = phase_outlook_kernels(torch)
     phase_model_parity(torch)
-    launches = phase_trainer(torch)
+    phase_outlook_model_parity(torch)
+    fixed, fixed_k2 = phase_trainer(torch)
+    prog_k1, prog_k2 = phase_prog_trainer(torch)
     t = phase_kernel_times(torch, card)
+    to, variants = phase_outlook_times(torch, card)
     phase_step_times(torch, card)
-    src = "autoprog_tpu_torch/csrc/mhsa_qkv.cu"
+    pal = "autoprog_tpu/ops/outlook_pallas.py"
     report = {"kernels": [
-        {"name": "mhsa_qkv_fwd", "route": "cuda", "source": src,
-         "replaces": "autoprog_tpu/ops/attention_pallas.py:206",
-         "launches": launches["fwd"], "max_abs_err": worst["fwd"],
-         "ms": t["fwd"], "plain_ms": t["plain_fwd"]},
-        {"name": "mhsa_qkv_bwd", "route": "cuda", "source": src,
-         "replaces": "autoprog_tpu/ops/attention_pallas.py:228",
-         "launches": launches["bwd"], "max_abs_err": worst["bwd"],
-         "ms": t["bwd"], "plain_ms": t["plain_bwd"]},
+        _row("mhsa_qkv_fwd", MHSA_SRC, "autoprog_tpu/ops/attention_pallas.py:206",
+             fixed["fwd"] + prog_k1["fwd"], worst["fwd"], t, "fwd"),
+        _row("mhsa_qkv_bwd", MHSA_SRC, "autoprog_tpu/ops/attention_pallas.py:228",
+             fixed["bwd"] + prog_k1["bwd"], worst["bwd"], t, "bwd"),
+        _row("outlook_fused_fwd", OUTLOOK_SRC, pal + ":80", fixed_k2["fwd"] + prog_k2["fwd"],
+             worst_o["fwd"], to, "fwd"),
+        _row("outlook_fused_bwd", OUTLOOK_SRC, pal + ":203", fixed_k2["bwd"] + prog_k2["bwd"],
+             worst_o["bwd"], to, "bwd"),
+        _row("outlook_attend_hm", OUTLOOK_SRC, pal + ":237", variants["attend_hm"],
+             worst_o["attend_hm"], to, "attend_hm"),
+        _row("outlook_attend", OUTLOOK_SRC, pal + ":326", variants["attend"],
+             worst_o["attend"], to, "attend"),
     ]}
+    say(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s on {card}")
     say(json.dumps(report))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

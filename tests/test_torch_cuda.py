@@ -1,5 +1,6 @@
-"""GPU-only tests of autoprog_tpu_torch: the CUDA kernels against their
-plain PyTorch twins, on the card. They skip without a CUDA device (a CUDA
+"""GPU-only tests of autoprog_tpu_torch: the CUDA kernels (K1, the fused
+MHSA; K2, K3, K4, the fused outlook attention and its attend variants)
+against their plain PyTorch twins, on the card. They skip without a CUDA device (a CUDA
 kernel has no CPU mode); the CPU tests hold the twins against the JAX
 package.
 
@@ -104,6 +105,128 @@ def test_volo_through_the_kernel_matches_the_unfused_path(cuda_device, monkeypat
         (x_cls.square().mean() + x_aux.square().mean()).backward()
         torch.cuda.synchronize()
         assert (A.LAUNCHES["bwd"] > before) == (fused == "1")
+        runs[fused] = (x_cls.detach(), {n: p.grad.clone() for n, p in
+                                        model.named_parameters() if p.grad is not None})
+    torch.testing.assert_close(runs["1"][0], runs["0"][0], rtol=1e-4, atol=1e-5)
+    for name, grad in runs["0"][1].items():
+        torch.testing.assert_close(runs["1"][1][name], grad, rtol=1e-4, atol=1e-5,
+                                   msg=name)
+
+
+# ----------------------------------------------- outlook attention (K2, K3, K4)
+
+OUTLOOK_SHAPES = [
+    (4, 28, 28, 192, 6),     # volo_d1 at 224 px
+    (4, 16, 16, 192, 6),     # ... at 128 px
+    (4, 20, 20, 192, 6),     # ... at 160 px
+    (4, 24, 24, 192, 6),     # ... at 192 px
+    (2, 28, 28, 384, 12),    # volo_d4 / d5 width
+    (2, 10, 6, 96, 2),       # H != W, head_dim 48
+    (1, 64, 64, 40, 2),      # several row tiles per image, head_dim 20
+    (3, 2, 2, 8, 1),         # one window
+]
+
+
+def _outlook_inputs(device, dtype, B, H, W, C, heads, seed=0):
+    from autoprog_tpu_torch.ops import outlook_fused as O
+    g = torch.Generator(device).manual_seed(seed)
+    v = torch.randn(B, H, W, C, device=device, generator=g).to(dtype)
+    logits = (3 * torch.randn(B, H // 2, W // 2, heads * 81, device=device,
+                              generator=g)).to(dtype)
+    gout = torch.randn(B, H, W, C, device=device, generator=g).to(dtype)
+    return O, v, logits, gout, (C // heads) ** -0.5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,heads", OUTLOOK_SHAPES)
+def test_outlook_fused_matches_twin(cuda_device, dtype, B, H, W, C, heads):
+    O, v, logits, gout, scale = _outlook_inputs(cuda_device, dtype, B, H, W, C, heads)
+    before = dict(O.LAUNCHES)
+    v.requires_grad_(True)
+    logits.requires_grad_(True)
+    out = O.outlook_attention_fused(v, logits, heads, scale)
+    out.backward(gout)
+    torch.cuda.synchronize()
+    assert O.LAUNCHES == dict(before, fwd=before["fwd"] + 1, bwd=before["bwd"] + 1)
+    assert out.dtype == v.grad.dtype == logits.grad.dtype == dtype
+    vd, ld = v.detach(), logits.detach()
+    assert_close(out, O.outlook_attention_fused_reference(vd, ld, heads, scale), dtype)
+    dv, dlogits = O.outlook_attention_backward_reference(vd, ld, gout, heads, scale)
+    assert_close(v.grad, dv, dtype)
+    assert_close(logits.grad, dlogits, dtype)
+
+
+@pytest.mark.parametrize("head_minor", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,heads", OUTLOOK_SHAPES[:1] + OUTLOOK_SHAPES[5:])
+def test_outlook_attend_matches_twin(cuda_device, dtype, head_minor, B, H, W, C, heads):
+    O, v, logits, _, scale = _outlook_inputs(cuda_device, dtype, B, H, W, C, heads, seed=1)
+    n = (H // 2) * (W // 2)
+    patches = v.new_empty(B, n, 9, C).copy_(
+        O.unfold_nhwc(v, 3, 2, 1).reshape(B, n, 9, C))
+    att = logits.reshape(B, n, heads, 9, 9).permute(0, 1, 3, 4, 2).contiguous()
+    key = "attend_hm" if head_minor else "attend"
+    before = O.LAUNCHES[key]
+    out = O._launch_attend(patches, att, heads, scale, head_minor)
+    torch.cuda.synchronize()
+    assert O.LAUNCHES[key] == before + 1
+    assert_close(out, O.outlook_attend_reference(patches, att, heads, scale, head_minor),
+                 dtype)
+
+
+@pytest.mark.parametrize("name", ["outlook_attention_hybrid", "outlook_attention_hybrid2"])
+def test_outlook_hybrids_match_the_fused_op(cuda_device, name):
+    """K3 / K4 with PyTorch's unfold and fold around them against K2, f32:
+    the same sums in another order (rtol 1e-5), and the shared backward."""
+    O, v, logits, gout, scale = _outlook_inputs(cuda_device, torch.float32, 2, 28, 28,
+                                                192, 6, seed=2)
+    v.requires_grad_(True)
+    logits.requires_grad_(True)
+    before = O.LAUNCHES["bwd"]
+    out = getattr(O, name)(v, logits, 6, scale)
+    out.backward(gout)
+    torch.cuda.synchronize()
+    assert O.LAUNCHES["bwd"] == before + 1
+    torch.testing.assert_close(
+        out, O.outlook_attention_fused_reference(v.detach(), logits.detach(), 6, scale),
+        rtol=1e-5, atol=1e-5)
+    dv, dlogits = O.outlook_attention_backward_reference(v.detach(), logits.detach(), gout,
+                                                         6, scale)
+    torch.testing.assert_close(v.grad, dv, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(logits.grad, dlogits, rtol=1e-5, atol=1e-5)
+
+
+def test_outlook_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    from autoprog_tpu_torch.ops import outlook_fused as O
+    v = torch.zeros(1, 5, 4, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="even H, W"):
+        O.outlook_attention_fused(v, torch.zeros(1, 2, 2, 81, device=cuda_device), 1, 1.0)
+    v = torch.zeros(1, 4, 4, 8, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        O.outlook_attention_fused(v, torch.zeros(1, 2, 2, 81, device=cuda_device,
+                                                 dtype=torch.float16), 1, 1.0)
+
+
+def test_volo_through_the_fused_outlook_matches_the_unfused_path(cuda_device, monkeypatch):
+    """volo_h2_l4 forward and backward in f32 on the card with
+    AUTOPROG_FUSED_OUTLOOK=1 against =0: in f32 both paths compute the same
+    formula, summation order only (rtol 1e-4)."""
+    from autoprog_tpu_torch import create_model
+    from autoprog_tpu_torch.ops import outlook_fused as O
+    torch.manual_seed(0)
+    model = create_model("volo_h2_l4").make(num_classes=10, img_size=64,
+                                            dtype=torch.float32).to(cuda_device)
+    x = torch.randn(2, 64, 64, 3, device=cuda_device)
+    bbox = torch.tensor([0, 1, 2, 3], dtype=torch.int32)
+    runs = {}
+    for fused in ("0", "1"):
+        monkeypatch.setenv("AUTOPROG_FUSED_OUTLOOK", fused)
+        model.zero_grad(set_to_none=True)
+        before = O.LAUNCHES["bwd"]
+        x_cls, x_aux, _ = model(x, train=True, bbox=bbox)
+        (x_cls.square().mean() + x_aux.square().mean()).backward()
+        torch.cuda.synchronize()
+        assert (O.LAUNCHES["bwd"] > before) == (fused == "1")
         runs[fused] = (x_cls.detach(), {n: p.grad.clone() for n, p in
                                         model.named_parameters() if p.grad is not None})
     torch.testing.assert_close(runs["1"][0], runs["0"][0], rtol=1e-4, atol=1e-5)

@@ -52,15 +52,33 @@ def test_main_cli_trains_evaluates_and_saves_on_cpu(tmp_path):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys\n"
-            "import autoprog_tpu_torch, autoprog_tpu_torch.main\n"
+    """Importing every module of the port (and building a model) loads
+    neither jax, flax, optax nor any module of the JAX package."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import autoprog_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(autoprog_tpu_torch.__path__,\n"
+            "                                               'autoprog_tpu_torch.')]\n"
+            "assert len(names) > 30 and 'autoprog_tpu_torch.main_prog' in names, names\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
             "from autoprog_tpu_torch import create_model\n"
             "create_model('volo_d1').make(num_classes=10)\n"
-            "bad = [m for m in ('jax', 'flax', 'optax') if m in sys.modules]\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'jaxlib', 'flax', 'optax', 'autoprog_tpu')]\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
+
+
+def test_no_source_file_imports_jax_or_the_jax_package():
+    import re
+    pat = re.compile(r"^\s*(from|import) +(autoprog_tpu\b[^_]|jax|flax|optax)", re.M)
+    files = glob.glob(os.path.join(REPO, "autoprog_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(files) > 30
+    bad = [f for f in files if pat.search(open(f).read())]
+    assert not bad, bad
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
