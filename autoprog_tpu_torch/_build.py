@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 #: C signature of every entry point: (restype, argtypes)
 SIGNATURES = {
@@ -44,6 +45,17 @@ SIGNATURES = {
     "mhsa_qkv_fwd": (_I, [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
     # qkv, dout, dqkv, stats, B, n, C, H, scale, scores_f32, dtype, stream
     "mhsa_qkv_bwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
+    # q, k, v, out, (image, row, head) strides of q, k, v, B, n, H, d, scale, dtype, stream
+    "mhsa_fwd": (_I, [_P] * 4 + [_L] * 9 + [_I, _I, _I, _I, _F, _I, _P]),
+    # q, k, v, dout, dq, dk, dv, stats, strides of q, k, v, dout, B, n, H, d, scale,
+    # dtype, stream
+    "mhsa_bwd": (_I, [_P] * 8 + [_L] * 12 + [_I, _I, _I, _I, _F, _I, _P]),
+    # qkv, out, B, n, C, H, scale, variant, stream
+    "mhsa_variant_fwd": (_I, [_P, _P, _I, _I, _I, _I, _F, _I, _P]),
+    # qkv, out, B, n, C, H, scale, G, phase, stream
+    "mhsa_group_fwd": (_I, [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
+    # qkv, dout, dqkv, stats, B, n, C, H, scale, G, phase, stream
+    "mhsa_group_bwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
     # v, logits, out, B, H, W, C, heads, scale, dtype, stream
     "outlook_fused_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
     # v, logits, gout, dv, dlogits, B, H, W, C, heads, scale, dtype, stream

@@ -3,13 +3,16 @@
 A Flax tree (`params`, `batch_stats`, a gradient tree or an EMA tree, as
 numpy or jax arrays) flattens to dotted names under the reference's module
 names (`s{stage}b{idx}`, `qkv`/`kv`/`q`, `pos_embed`, `cls_token`, `head`,
-`aux_head`, `patch_embed.stem{i}.{conv,bn}`, `ds{s}`, `post{i}`, `norm`):
+`aux_head`, `patch_embed.stem{i}.{conv,bn}`, `ds{s}`, `post{i}`, `norm`; for
+DeiT `patch_embed` is the patchify conv itself, with `dist_token` and
+`head_dist` in the distilled variants):
 
   Dense kernel [in, out]        -> weight [out, in]
   Conv kernel HWIO              -> weight OIHW
   LayerNorm / BatchNorm scale   -> weight
   BatchNorm mean / var          -> running_mean / running_var
-  bias, pos_embed, cls_token    -> unchanged
+  bias, pos_embed, cls_token,
+  dist_token                    -> unchanged
 
 The fused `qkv` out-axis keeps its (3, heads, d) order, which K1 relies on.
 """

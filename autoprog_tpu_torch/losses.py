@@ -1,7 +1,9 @@
 """Loss functions, counterpart of `autoprog_tpu/losses.py`.
 
 Token-label losses consume the VOLO training triple (x_cls, x_aux, bbox)
-and reconstruct the MixToken lambda from the box. Cross-entropy runs in f32
+and reconstruct the MixToken lambda from the box. The other losses take the
+cls logits: the first element where the model returns a tuple (VOLO's
+triple, the distilled DeiT's (x_cls, x_dist)). Cross-entropy runs in f32
 whatever the compute dtype. Target formats: soft rows [B, C], or the dense
 token-label map [B, C, 2+N] (slot 0 ground truth, slot 1 cls target,
 slots 2.. per-token targets). The sparse token-label targets and the JSD

@@ -2,19 +2,20 @@
 `autoprog_tpu/models/factory.py`.
 
 `volo_d1..d5`, the `volo_h{H}_l{L}` supernet grammar and the fixed-width
-`volod4_h{H}_l{L}` / `volod5_h{H}_l{L}` families build VOLO. DeiT names
-raise NotImplementedError: DeiT is not ported yet.
+`volod4_h{H}_l{L}` / `volod5_h{H}_l{L}` families build VOLO; the eight DeiT
+names and the `deit_h{H}_l{L}` grammar build `models/vit.py`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Tuple, Union
 
 import torch
 
 from autoprog_tpu_torch.config import parse_variant_name
 from autoprog_tpu_torch.prog.depth import volo_depth_split
+from autoprog_tpu_torch.models.vit import VisionTransformer
 from autoprog_tpu_torch.models.volo import VOLO
 from autoprog_tpu_torch.registry import register_model
 
@@ -24,6 +25,11 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 def _volo_cfg(crop_pct: float = 0.96) -> Dict[str, Any]:
     return dict(num_classes=1000, input_size=(3, 224, 224), crop_pct=crop_pct,
+                interpolation="bicubic", mean=IMAGENET_MEAN, std=IMAGENET_STD)
+
+
+def _deit_cfg() -> Dict[str, Any]:
+    return dict(num_classes=1000, input_size=(3, 224, 224), crop_pct=0.9,
                 interpolation="bicubic", mean=IMAGENET_MEAN, std=IMAGENET_STD)
 
 
@@ -47,17 +53,47 @@ class VoloArch:
 
 
 @dataclasses.dataclass(frozen=True)
+class DeitArch:
+    """Static architecture record for a DeiT/ViT model (single stage)."""
+    embed_dim: int
+    depth: int
+    num_heads: int
+    patch_size: int = 16
+    mlp_ratio: float = 4.0
+    distilled: bool = False
+    family: str = "deit"
+
+    @property
+    def layers(self) -> Tuple[int, ...]:
+        return (self.depth,)
+
+    @property
+    def embed_dims(self) -> Tuple[int, ...]:
+        return (self.embed_dim,)
+
+    @property
+    def total_layers(self) -> int:
+        return self.depth
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelDef:
     name: str
-    arch: VoloArch
+    arch: Union[VoloArch, DeitArch]
     default_cfg: Dict[str, Any]
 
     def make(self, *, num_classes: int = 1000, img_size: int = 224,
              drop_rate: float = 0.0, drop_path_rate: float = 0.0,
              attn_drop_rate: float = 0.0, dtype=torch.bfloat16,
              mix_token=None, return_dense=None, bn_momentum=None, bn_eps=None,
-             aux_fusion: str = "max") -> VOLO:
+             aux_fusion: str = "max") -> Union[VOLO, VisionTransformer]:
         a = self.arch
+        if isinstance(a, DeitArch):
+            return VisionTransformer(
+                embed_dim=a.embed_dim, depth=a.depth, num_heads=a.num_heads,
+                patch_size=a.patch_size, mlp_ratio=a.mlp_ratio, num_classes=num_classes,
+                distilled=a.distilled, img_size=img_size, drop_rate=drop_rate,
+                attn_drop_rate=attn_drop_rate, drop_path_rate=drop_path_rate, dtype=dtype)
         bn_kw = {}
         if bn_momentum is not None:
             bn_kw["bn_momentum"] = bn_momentum
@@ -85,6 +121,11 @@ def volo_variant_arch(h: int, l: int) -> VoloArch:
                     num_heads=(h // 2, h, h, h))
 
 
+def deit_variant_arch(h: int, l: int) -> DeitArch:
+    """`deit_h{H}_l{L}`: embed_dim = 64h (head_dim 64), depth l."""
+    return DeitArch(embed_dim=64 * h, depth=l, num_heads=h)
+
+
 def volo_fixed_width_arch(h: int, l: int, *, dims, heads, mlp, stem,
                           family: str) -> VoloArch:
     """Elastic-depth family with pinned width (volod4 / volod5)."""
@@ -103,18 +144,13 @@ _FIXED_WIDTH_FAMILIES = {
 }
 
 
-def _deit_not_ported(name: str):
-    raise NotImplementedError(f"{name}: DeiT is not ported yet (autoprog_tpu_torch "
-                              "builds VOLO only)")
-
-
 @register_model
 def model_variant(variant: str = "", **kwargs) -> ModelDef:
     family, h, l = parse_variant_name(variant)
     if family == "volo":
         return ModelDef(variant, volo_variant_arch(h, l), _volo_cfg())
     if family == "deit":
-        _deit_not_ported(variant)
+        return ModelDef(variant, deit_variant_arch(h, l), _deit_cfg())
     if family in _FIXED_WIDTH_FAMILIES:
         dims, heads, mlp, stem, crop = _FIXED_WIDTH_FAMILIES[family]
         return ModelDef(variant, volo_fixed_width_arch(h, l, dims=dims, heads=heads,
@@ -157,15 +193,21 @@ def volo_d5(**kw):
                  (4, 4, 4, 4), crop_pct=1.15, stem=128)
 
 
-def _register_deit(name: str) -> None:
+def _register_deit(name: str, dim: int, depth: int, heads: int, distilled: bool = False,
+                   **cfg) -> None:
     def builder(**kw):
-        _deit_not_ported(name)
+        return ModelDef(name, DeitArch(embed_dim=dim, depth=depth, num_heads=heads,
+                                       distilled=distilled), {**_deit_cfg(), **cfg})
     builder.__name__ = name
     register_model(builder)
 
 
-for _name in ("deit_tiny_patch16_224", "deit_small_patch16_224", "deit_base_patch16_224",
-              "deit_tiny_distilled_patch16_224", "deit_small_distilled_patch16_224",
-              "deit_base_distilled_patch16_224", "deit_base_patch16_384",
-              "deit_base_distilled_patch16_384"):
-    _register_deit(_name)
+_AT_384 = dict(input_size=(3, 384, 384), crop_pct=1.0)
+_register_deit("deit_tiny_patch16_224", 192, 12, 3)
+_register_deit("deit_small_patch16_224", 384, 12, 6)
+_register_deit("deit_base_patch16_224", 768, 12, 12)
+_register_deit("deit_tiny_distilled_patch16_224", 192, 12, 3, True)
+_register_deit("deit_small_distilled_patch16_224", 384, 12, 6, True)
+_register_deit("deit_base_distilled_patch16_224", 768, 12, 12, True)
+_register_deit("deit_base_patch16_384", 768, 12, 12, **_AT_384)
+_register_deit("deit_base_distilled_patch16_384", 768, 12, 12, True, **_AT_384)

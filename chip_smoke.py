@@ -10,9 +10,14 @@ back to the CPU or to a plain twin):
      compiler process per source, all at once;
   3. kernel vs plain, on the card, bf16 and f32, tolerance 2 ulp of the
      largest value: K1 forward and backward at the volo_d1 shapes (B=32,
-     C=384, 12 heads, n = 64/100/144/196), at the router's edge (n=1024,
-     head_dim 128) and with f32 scores; K2 forward and backward at B=32,
-     C=192, 6 heads, H=W=16/20/24/28 and at an odd shape (H=10, W=6,
+     C=384, 12 heads, n = 64/100/144/196), at the DeiT shapes (n = 197 and
+     198, head_dim 64), at the router's edge (n=1024, head_dim 128) and with
+     f32 scores; K5 (separate q, k, v; contiguous and as views of one
+     buffer) at the same shapes; every schedule variant (twophase,
+     twophase_bf16s, pipelined) and every G-images-per-block variant (order
+     phase or loop, G = 1, 2, 4; forward and backward) against its twin and
+     against K1's launch at the same score type; K2 forward and backward at
+     B=32, C=192, 6 heads, H=W=16/20/24/28 and at an odd shape (H=10, W=6,
      head_dim 48); K3 and K4 at n=196. Then the volo_d1 f32 forward through
      K1 against the unfused MHSA, and with AUTOPROG_FUSED_OUTLOOK=1 against
      =0 (1e-3);
@@ -29,9 +34,21 @@ back to the CPU or to a plain twin):
      finite losses, the decision line, the stage history and that K2's
      backward ran once per outlooker layer of every train and timed-probe
      step (4 per full-depth step) and K1's once per transformer layer (14);
-  6. times (CUDA events / synchronised clock, after warm-up, bf16), on the
+  6. DeiT: `autoprog_tpu_torch.main.main` with deit_small_patch16_224 at
+     full width (384, 12 layers, 6 heads, 224 px, batch 64, bf16), 4 train
+     steps and one eval pass; finite losses; K1 launched 12 times per step,
+     forward and backward; two steps of the distilled variant; the step time
+     on a device-resident batch;
+  7. measurement entry points: `scripts.bench_attn.main` and
+     `scripts.bench_attn_x.main` at B = 128 (their tables) and
+     `autoprog_tpu_torch.bench.main` (one JSON line: img/s of the full
+     volo_d1 step at batch 128 and the progressive schedule's `vs_baseline`);
+     checks value > 0, vs_baseline > 0 and that K5 and every variant were
+     launched;
+  8. times (CUDA events / synchronised clock, after warm-up, bf16), on the
      card named beside them: K1 at [128, 196, 384, 12 heads] with
      `F.scaled_dot_product_attention` as its library yardstick; one
+     K5 and every variant at the same shape, each beside its twin and SDPA; one
      outlooker layer's op at [128, 28, 28, 192] through the unfused path, K2,
      K3 and K4, forward and forward + backward; the attend kernel alone;
      and the full volo_d1 train step at batch 128, 224 px, K1 on against
@@ -39,8 +56,9 @@ back to the CPU or to a plain twin):
      peak memory.
 
 The line before the last is the kernel report (JSON): for each kernel its
-launches on its path (K1 and K2: phases 4 and 5; K3, K4: the variants run
-of phase 6), its worst error against the twin, its time, the twin's,
+launches on its path (K1 and K2: phases 4 to 6; K3, K4: the variants run
+of phase 8; K5 and the MHSA variants: the measurement scripts of phase 7), its
+worst error against the twin, its time, the twin's,
 the least time the card could take (`bound_ms`, from the bytes it must move
 at 3.35 TB/s and its operations at the peak of their type) and the library
 call's time where one exists. The last line is {"ok": true, "device":
@@ -63,6 +81,8 @@ TOL_ULPS = {"bfloat16": 2.0 ** -6, "float32": 2.0 ** -20}
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 MHSA_SRC = "autoprog_tpu_torch/csrc/mhsa_qkv.cu"
 OUTLOOK_SRC = "autoprog_tpu_torch/csrc/outlook.cu"
+VARIANTS_SRC = "autoprog_tpu_torch/csrc/mhsa_variants.cu"
+GROUPS = [("phase", 1), ("phase", 2), ("loop", 2), ("phase", 4), ("loop", 4)]
 
 
 def fail(msg: str):
@@ -123,9 +143,11 @@ def phase_kernels(torch):
     from autoprog_tpu_torch.ops import attention as A
     worst = {"fwd": 0.0, "bwd": 0.0}
     # (B, n, heads, d, scores_f32): the four stage resolutions of volo_d1,
-    # the router's edge, and the AUTOPROG_ATTN_SCORES_F32=1 variant
+    # the router's edge, the AUTOPROG_ATTN_SCORES_F32=1 variant, and DeiT
+    # small, plain and distilled (197 and 198 tokens, head_dim 64)
     shapes = ([(32, n, 12, 32, False) for n in (64, 100, 144, 196)]
-              + [(4, 1024, 3, 128, False), (32, 196, 12, 32, True)])
+              + [(4, 1024, 3, 128, False), (32, 196, 12, 32, True),
+                 (8, 197, 6, 64, False), (8, 198, 6, 64, False)])
     gen = torch.Generator("cuda").manual_seed(0)
     for dt in (torch.bfloat16, torch.float32):
         dt_name = str(dt).split(".")[-1]
@@ -151,21 +173,107 @@ def phase_kernels(torch):
     return worst
 
 
+def _check(tag, worst, key, got, want, dt_name):
+    if got.shape != want.shape or not bool(got.isfinite().all()):
+        fail(f"{tag} {dt_name}: bad shape or non-finite")
+    e, tol = _err(got, want), _tol(want, dt_name)
+    say(f"phase 3 {tag} {dt_name}: max_abs_err {e:.3e} (tol {tol:.3e})")
+    if not e <= tol:
+        fail(f"{tag} disagrees: {e} > {tol}")
+    worst[key] = max(worst.get(key, 0.0), e)
+
+
+def phase_mhsa_variants(torch):
+    """K5 against its twin (bf16 and f32; contiguous q, k, v and the three
+    views of one qkv buffer) and against K1 at f32 scores; every schedule
+    variant and every G-images-per-block variant (bf16) against its twin and
+    against K1's launch at the variant's score type. Same tolerance and
+    reason as K1's; against K1 the results are also compared bit for bit and
+    the outcome is printed."""
+    from autoprog_tpu_torch.ops import attention as A
+    from autoprog_tpu_torch.scripts import attn_variants as V
+    from autoprog_tpu_torch.scripts import bench_attn_x as X
+    worst, same = {}, {}
+    gen = torch.Generator("cuda").manual_seed(5)
+    shapes = [(32, n, 12, 32) for n in (64, 100, 144, 196)] + [(8, 197, 6, 64),
+                                                                (4, 1024, 3, 128)]
+    for dt in (torch.bfloat16, torch.float32):
+        dt_name = str(dt).split(".")[-1]
+        for B, n, H, d in shapes:
+            qkv = torch.randn(B, n, 3 * H * d, device="cuda", generator=gen).to(dt)
+            dout = torch.randn(B, n, H * d, device="cuda", generator=gen).to(dt)
+            scale, tag = d ** -0.5, f"B={B} n={n} heads={H} d={d}"
+            k1f = A._launch_fwd(qkv, H, scale, True).view(B, n, H, d)
+            k1b = A._launch_bwd(qkv, dout, H, scale, True).view(B, n, 3, H, d).unbind(2)
+            views = qkv.view(B, n, 3, H, d).unbind(2)
+            g4 = dout.view(B, n, H, d)
+            for how, (q, k, v) in (("views", views),
+                                   ("contiguous", [t.contiguous() for t in views])):
+                out = A._launch_fused_fwd(q, k, v, scale)
+                grads = A._launch_fused_bwd(q, k, v, g4, scale)
+                torch.cuda.synchronize()
+                _check(f"K5 fwd {how} {tag}", worst, "mhsa_fwd", out,
+                       A.mhsa_fused_reference(q, k, v, scale), dt_name)
+                _check(f"K5 fwd {how} vs K1 at f32 scores {tag}", worst, "mhsa_fwd", out, k1f,
+                       dt_name)
+                refs = A.mhsa_fused_backward_reference(q, k, v, g4, scale)
+                for nm, got, ref, k1 in zip(("dq", "dk", "dv"), grads, refs, k1b):
+                    _check(f"K5 bwd {nm} {how} {tag}", worst, "mhsa_bwd", got, ref, dt_name)
+                    _check(f"K5 bwd {nm} {how} vs K1 {tag}", worst, "mhsa_bwd", got, k1,
+                           dt_name)
+                same["mhsa"] = same.get("mhsa", True) and torch.equal(out, k1f) and all(
+                    torch.equal(a, b) for a, b in zip(grads, k1b))
+    # the variants: the bench shape and DeiT's (odd n, head_dim 64)
+    for B, n, H, d in [(32, 196, 12, 32), (8, 197, 6, 64)]:
+        qkv = torch.randn(B, n, 3 * H * d, device="cuda", generator=gen).bfloat16()
+        dout = torch.randn(B, n, H * d, device="cuda", generator=gen).bfloat16()
+        scale, tag = d ** -0.5, f"B={B} n={n} heads={H} d={d}"
+        for name in V._KERNELS:
+            out = V._launch(name, qkv, H, scale)
+            k1 = A._launch_fwd(qkv, H, scale, V.SCORES_F32[name])
+            torch.cuda.synchronize()
+            _check(f"S2 {name} {tag}", worst, name, out,
+                   V.mhsa_fwd_variant_reference(name, qkv, H, scale), "bfloat16")
+            _check(f"S2 {name} vs K1 scores_f32={int(V.SCORES_F32[name])} {tag}", worst, name,
+                   out, k1, "bfloat16")
+            same[name] = same.get(name, True) and torch.equal(out, k1)
+        k1f = A._launch_fwd(qkv, H, scale, True)
+        k1b = A._launch_bwd(qkv, dout, H, scale, True)
+        ref_f = X.group_reference(qkv, H, scale)
+        ref_b = X.group_backward_reference(qkv, dout, H, scale)
+        for order, G in GROUPS:
+            key = X.variant_name(order, G)
+            out = X._launch_group_fwd(order, G, qkv, H, scale)
+            grad = X._launch_group_bwd(order, G, qkv, dout, H, scale)
+            torch.cuda.synchronize()
+            _check(f"S1 {key} fwd {tag}", worst, key + "_fwd", out, ref_f, "bfloat16")
+            _check(f"S1 {key} fwd vs K1 at f32 scores {tag}", worst, key + "_fwd", out, k1f,
+                   "bfloat16")
+            _check(f"S1 {key} bwd {tag}", worst, key + "_bwd", grad, ref_b, "bfloat16")
+            _check(f"S1 {key} bwd vs K1 at f32 scores {tag}", worst, key + "_bwd", grad, k1b,
+                   "bfloat16")
+            same[key] = same.get(key, True) and torch.equal(out, k1f) and \
+                torch.equal(grad, k1b)
+    say(f"phase 3 bit for bit equal to K1 at the same score type: {same}")
+    # what does not fit is refused, not shrunk
+    big = torch.randn(2, 1024, 3 * 2 * 64, device="cuda", generator=gen).bfloat16()
+    for what, call in (("twophase at n=1024", lambda: V._launch("twophase", big, 2, 0.125)),
+                       ("phase_img2 at n=1024",
+                        lambda: X._launch_group_fwd("phase", 2, big, 2, 0.125))):
+        try:
+            call()
+        except ValueError as e:
+            say(f"phase 3 {what}: refused ({e})")
+        else:
+            fail(f"{what} should not fit a block's shared memory")
+    return worst
+
+
 def phase_outlook_kernels(torch):
     """K2 forward and backward and the K3 / K4 attend against their plain
     twins; same tolerance and reason as K1's."""
     from autoprog_tpu_torch.ops import outlook_fused as O
-    worst = {"fwd": 0.0, "bwd": 0.0, "attend_hm": 0.0, "attend": 0.0}
-
-    def check(tag, key, got, want, dt_name):
-        if got.shape != want.shape or not torch.isfinite(got).all():
-            fail(f"{tag} {dt_name}: bad shape or non-finite")
-        e, tol = _err(got, want), _tol(want, dt_name)
-        say(f"phase 3 {tag} {dt_name}: max_abs_err {e:.3e} (tol {tol:.3e})")
-        if not e <= tol:
-            fail(f"{tag} disagrees with its plain twin: {e} > {tol}")
-        worst[key] = max(worst[key], e)
-
+    worst = {}
     # (B, H, W, C, heads): the four stage resolutions of volo_d1 and an odd
     # shape (H != W, head_dim 48)
     shapes = [(32, r, r, 192, 6) for r in (16, 20, 24, 28)] + [(8, 10, 6, 96, 2)]
@@ -182,11 +290,11 @@ def phase_outlook_kernels(torch):
             dv, dlogits = O._launch_bwd(v, logits, gout, heads, scale)
             torch.cuda.synchronize()
             tag = f"B={B} H={H} W={W} C={C} heads={heads}"
-            check(f"K2 fwd {tag}", "fwd", out,
-                  O.outlook_attention_fused_reference(v, logits, heads, scale), dt_name)
+            _check(f"K2 fwd {tag}", worst, "fwd", out,
+                   O.outlook_attention_fused_reference(v, logits, heads, scale), dt_name)
             rdv, rdl = O.outlook_attention_backward_reference(v, logits, gout, heads, scale)
-            check(f"K2 bwd dv {tag}", "bwd", dv, rdv, dt_name)
-            check(f"K2 bwd dlogits {tag}", "bwd", dlogits, rdl, dt_name)
+            _check(f"K2 bwd dv {tag}", worst, "bwd", dv, rdv, dt_name)
+            _check(f"K2 bwd dlogits {tag}", worst, "bwd", dlogits, rdl, dt_name)
         B, H, C, heads = 32, 28, 192, 6
         n = (H // 2) ** 2
         patches = torch.randn(B, n, 9, C, device="cuda", generator=gen).to(dt)
@@ -194,8 +302,9 @@ def phase_outlook_kernels(torch):
         for key, hm in (("attend_hm", True), ("attend", False)):
             out = O._launch_attend(patches, att, heads, 32 ** -0.5, hm)
             torch.cuda.synchronize()
-            check(f"{'K3' if hm else 'K4'} attend B={B} n={n} C={C} heads={heads}", key, out,
-                  O.outlook_attend_reference(patches, att, heads, 32 ** -0.5, hm), dt_name)
+            _check(f"{'K3' if hm else 'K4'} attend B={B} n={n} C={C} heads={heads}", worst,
+                   key, out,
+                   O.outlook_attend_reference(patches, att, heads, 32 ** -0.5, hm), dt_name)
     return worst
 
 
@@ -390,17 +499,138 @@ def phase_prog_trainer(torch, steps: int = 5, batch: int = 64):
     return k1, k2
 
 
+def _reset_mhsa_counts():
+    from autoprog_tpu_torch.ops import attention as A
+    from autoprog_tpu_torch.scripts import attn_variants as V
+    from autoprog_tpu_torch.scripts import bench_attn_x as X
+    for k in A.LAUNCHES:
+        A.LAUNCHES[k] = 0
+    for k in V.LAUNCHES:
+        V.LAUNCHES[k] = 0
+    X.LAUNCHES.clear()
+
+
+def phase_deit(torch, card, steps: int = 4, batch: int = 64):
+    """deit_small through the fixed trainer at full width, then two steps of
+    the distilled variant, then the step time on a device-resident batch."""
+    import argparse
+    from autoprog_tpu_torch import create_model
+    from autoprog_tpu_torch.losses import build_train_loss
+    from autoprog_tpu_torch.main import main
+    from autoprog_tpu_torch.ops.attention import LAUNCHES
+    from autoprog_tpu_torch.train.optim import create_optimizer
+    from autoprog_tpu_torch.train.state import TrainState
+    from autoprog_tpu_torch.train.steps import StepBuilder
+    os.environ.pop("AUTOPROG_FUSED_ATTN", None)
+    total = {"fwd": 0, "bwd": 0}
+    for model, n_steps, tokens in (("deit_small_patch16_224", steps, 197),
+                                   ("deit_small_distilled_patch16_224", 2, 198)):
+        out = tempfile.mkdtemp(prefix="chip_smoke_deit_")
+        argv = ["synthetic://", "--model", model, "--img-size", "224", "-b", str(batch),
+                "--model-ema", "--model-ema-decay", "0.999", "--drop-path", "0.1",
+                "--epochs", "1", "--warmup-epochs", "0", "--cooldown-epochs", "0", "--lr",
+                "1e-3", "--fake-data-size", str(n_steps * batch), "--workers", "6",
+                "--log-interval", "1", "--output", out]
+        _reset_mhsa_counts()
+        t0 = time.time()
+        best = main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(LAUNCHES)
+        run = glob.glob(os.path.join(out, "train", "*"))[0]
+        log = open(os.path.join(run, "log.txt")).read()
+        losses = [float(v) for v in re.findall(r"Train: 0 \[\s*\d+/\d+\]\s+Loss: (\S+)", log)]
+        say(f"phase 6 deit: python -m autoprog_tpu_torch.main {' '.join(argv[:-2])} "
+            f"({wall:.1f} s incl. data and eval)")
+        say(f"phase 6 {model} ({tokens} tokens, head_dim 64) losses: {losses}")
+        if len(losses) != n_steps or not all(math.isfinite(v) for v in losses):
+            fail(f"expected {n_steps} finite losses, got {losses}")
+        say(f"phase 6 launches: K1 {launches} (train steps {n_steps} x 12 layers = "
+            f"{12 * n_steps})")
+        if launches["bwd"] != 12 * n_steps or launches["fwd"] < 12 * n_steps:
+            fail(f"K1 launches {launches} do not cover 12 layers x {n_steps} steps")
+        tests = [ln for ln in log.splitlines() if re.search(r"Test(_EMA_\S+)?: loss", ln)]
+        for ln in tests:
+            say("phase 6 eval: " + ln.split("autoprog_tpu_torch: ")[-1])
+        if len(tests) != 2 or best is None:
+            fail("the eval pass did not print a top-1 line for the model and its EMA")
+        for k in total:
+            total[k] += launches[k]
+
+    # the step alone: soft-target CE, AdamW, one EMA, drop-path 0.1
+    args = argparse.Namespace(opt="adamw", opt_betas=None, opt_eps=None, weight_decay=0.05,
+                              token_label=False, token_label_size=1, ground_truth=False,
+                              dense_weight=0.5, cls_weight=1.0)
+    torch.manual_seed(0)
+    model = create_model("deit_small_patch16_224").make(
+        num_classes=1000, drop_path_rate=0.1, dtype=torch.bfloat16).cuda()
+    state = TrainState.create(model=model, optimizer=create_optimizer(args, model),
+                              ema_decays=(0.999,))
+    sb = StepBuilder(train_loss=build_train_loss(args), ema_decays=(0.999,), num_classes=1000,
+                     device=torch.device("cuda"), seed=0)
+    g = torch.Generator("cuda").manual_seed(6)
+    data = {"image": torch.randn(batch, 224, 224, 3, device="cuda", generator=g),
+            "label": torch.randint(0, 1000, (batch,), device="cuda", generator=g)}
+    ms = {}
+    for value in ("0", "1", "1", "0"):
+        os.environ["AUTOPROG_FUSED_ATTN"] = value
+        ms.setdefault(value, []).append(_time_cuda(
+            torch, lambda: sb.train_step(state, data, 1e-3, r=224), 10))
+    del os.environ["AUTOPROG_FUSED_ATTN"]
+    on, off = sum(ms["1"]) / 2, sum(ms["0"]) / 2
+    say(f"phase 6 deit_small train step b={batch} 224px bf16 on {card}: K1 on {on:.2f} ms "
+        f"({batch / on * 1e3:.1f} img/s; runs {ms['1']}), AUTOPROG_FUSED_ATTN=0 {off:.2f} ms "
+        f"({batch / off * 1e3:.1f} img/s; runs {ms['0']})")
+    return total
+
+
+def phase_measure(torch):
+    """The measurement entry points, as a user calls them: the two attention
+    benches at B = 128 (their tables go to stdout) and the headline bench
+    (its one JSON line is parsed, then printed). Returns the launch counts
+    of K5 and of every variant over this phase."""
+    import contextlib
+    import io
+    from autoprog_tpu_torch import bench
+    from autoprog_tpu_torch.ops import attention as A
+    from autoprog_tpu_torch.scripts import attn_variants as V
+    from autoprog_tpu_torch.scripts import bench_attn, bench_attn_x as X
+    os.environ.pop("AUTOPROG_FUSED_ATTN", None)
+    os.environ.pop("AUTOPROG_FUSED_OUTLOOK", None)
+    _reset_mhsa_counts()
+    say("phase 7 python -m autoprog_tpu_torch.scripts.bench_attn 128")
+    bench_attn.main(["128"])
+    say("phase 7 python -m autoprog_tpu_torch.scripts.bench_attn_x 128")
+    X.main(["128"])
+    counts = {"mhsa_fwd": A.LAUNCHES["fused_fwd"], "mhsa_bwd": A.LAUNCHES["fused_bwd"],
+              **V.LAUNCHES, **X.LAUNCHES}
+    say(f"phase 7 launches by the two benches: {counts}")
+    want = ["mhsa_fwd", "mhsa_bwd", *V._KERNELS] + [
+        X.variant_name(o, G) + side for o, G in GROUPS for side in ("_fwd", "_bwd")]
+    missing = [k for k in want if counts.get(k, 0) <= 0]
+    if missing:
+        fail(f"the benches did not launch {missing}")
+    say("phase 7 python -m autoprog_tpu_torch.bench")
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        bench.main()
+    lines = buf.getvalue().strip().splitlines()
+    if len(lines) != 1:
+        fail(f"bench.main printed {len(lines)} lines on stdout, not one")
+    result = json.loads(lines[0])
+    say(f"phase 7 bench ({time.time() - t0:.1f} s): {lines[0]}")
+    if list(result) != ["metric", "value", "unit", "vs_baseline"] or \
+            result["metric"] != "volo_d1_train_imgs_per_sec_per_chip" or \
+            not (result["value"] > 0 and result["vs_baseline"] > 0):
+        fail(f"bench.main's line does not hold the four keys with positive values: {result}")
+    return counts
+
+
 def _time_cuda(torch, fn, iters: int, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Milliseconds per call between two CUDA events, after a warm-up."""
+    from autoprog_tpu_torch.scripts.timing import time_call
+    return time_call(fn, iters, warmup)
 
 
 def phase_kernel_times(torch, card):
@@ -438,12 +668,66 @@ def phase_kernel_times(torch, card):
     prod = 2 * n * n * d * H * B
     t["bound_fwd"], t["by_fwd"] = _bound(4 * B * n * C * item, 2 * prod, BF16_FLOPS)
     t["bound_bwd"], t["by_bwd"] = _bound(7 * B * n * C * item, 5 * prod, BF16_FLOPS)
-    say(f"phase 6 K1 [B={B}, n={n}, C={C}, heads={H}] bf16 on {card}: "
+    say(f"phase 8 K1 [B={B}, n={n}, C={C}, heads={H}] bf16 on {card}: "
         f"fwd {t['fwd']:.4f} ms (plain {t['plain_fwd']:.4f}, SDPA {t['lib_fwd']:.4f}, bound "
         f"{t['bound_fwd']:.4f} by {t['by_fwd']}), bwd {t['bwd']:.4f} ms (plain "
         f"{t['plain_bwd']:.4f}, SDPA backward {t['lib_bwd']:.4f}, bound {t['bound_bwd']:.4f} "
         f"by {t['by_bwd']})")
     return t
+
+
+def phase_mhsa_variant_times(torch, card, t_k1):
+    """K5 and every variant at the volo_d1 shape beside its twin and SDPA
+    (K1's library yardstick, timed in phase_kernel_times). Returns
+    {row: {ms, plain_ms, library_ms, bound_ms, bound_by}}."""
+    from autoprog_tpu_torch.ops import attention as A
+    from autoprog_tpu_torch.scripts import attn_variants as V
+    from autoprog_tpu_torch.scripts import bench_attn_x as X
+    B, n, H, d = 128, 196, 12, 32
+    gen = torch.Generator("cuda").manual_seed(7)
+    qkv = torch.randn(B, n, 3 * H * d, device="cuda", generator=gen).bfloat16()
+    dout = torch.randn(B, n, H * d, device="cuda", generator=gen).bfloat16()
+    q, k, v = (torch.randn(B, n, H, d, device="cuda", generator=gen).bfloat16()
+               for _ in range(3))
+    g4 = dout.view(B, n, H, d)
+    scale = d ** -0.5
+    # the variants' twins are K1's at the variant's score type
+    plain = {
+        ("fwd", True): _time_cuda(
+            torch, lambda: A.mhsa_fused_qkv_reference(qkv, H, scale, True), 20),
+        ("bwd", True): _time_cuda(
+            torch, lambda: A.mhsa_fused_qkv_backward_reference(qkv, dout, H, scale, True), 20),
+        ("fwd", False): t_k1["plain_fwd"],
+    }
+    rows = {
+        "mhsa_fwd": (_time_cuda(torch, lambda: A._launch_fused_fwd(q, k, v, scale), 50),
+                     _time_cuda(torch, lambda: A.mhsa_fused_reference(q, k, v, scale), 20),
+                     "fwd"),
+        "mhsa_bwd": (_time_cuda(torch, lambda: A._launch_fused_bwd(q, k, v, g4, scale), 50),
+                     _time_cuda(torch, lambda: A.mhsa_fused_backward_reference(
+                         q, k, v, g4, scale), 20), "bwd"),
+    }
+    for name in V._KERNELS:
+        rows[name] = (_time_cuda(torch, lambda: V._launch(name, qkv, H, scale), 50),
+                      plain[("fwd", V.SCORES_F32[name])], "fwd")
+    for order, G in GROUPS:
+        key = X.variant_name(order, G)
+        rows[key + "_fwd"] = (_time_cuda(
+            torch, lambda: X._launch_group_fwd(order, G, qkv, H, scale), 50),
+            plain[("fwd", True)], "fwd")
+        rows[key + "_bwd"] = (_time_cuda(
+            torch, lambda: X._launch_group_bwd(order, G, qkv, dout, H, scale), 30),
+            plain[("bwd", True)], "bwd")
+    # the same bytes and products as K1: q, k, v and out (forward), or q, k,
+    # v, dout and three gradients (backward), moved once
+    out = {}
+    for key, (ms, plain_ms, side) in rows.items():
+        out[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": t_k1["lib_" + side],
+                    "bound_ms": t_k1["bound_" + side], "bound_by": t_k1["by_" + side]}
+        say(f"phase 8 {key} [B={B}, n={n}, C={H * d}, heads={H}] bf16 on {card}: {ms:.4f} ms "
+            f"(plain {plain_ms:.4f}, SDPA {t_k1['lib_' + side]:.4f}, bound "
+            f"{t_k1['bound_' + side]:.4f} by {t_k1['by_' + side]}; K1 {t_k1[side]:.4f})")
+    return out
 
 
 def _bound(nbytes: float, flops: float, peak: float):
@@ -489,10 +773,10 @@ def phase_outlook_times(torch, card):
             f = _time_cuda(torch, lambda: op(v, logits), 20)
         fb = _time_cuda(torch, lambda: fwd_bwd(op), 20)
         res[name] = (f, fb)
-        say(f"phase 6 outlook op [B={B}, {H}x{H}, C={C}, heads={heads}] bf16 on {card}: "
+        say(f"phase 8 outlook op [B={B}, {H}x{H}, C={C}, heads={heads}] bf16 on {card}: "
             f"{name} forward {f:.4f} ms, forward + backward {fb:.4f} ms")
     variants = dict(O.LAUNCHES)
-    say(f"phase 6 variants run launches: {variants}")
+    say(f"phase 8 variants run launches: {variants}")
     if not all(variants[k] > 0 for k in ("fwd", "bwd", "attend_hm", "attend")):
         fail(f"the variants run did not go through every outlook kernel: {variants}")
 
@@ -520,7 +804,7 @@ def phase_outlook_times(torch, card):
     for key in ("attend_hm", "attend"):
         t["bound_" + key], t["by_" + key] = _bound(2 * patch_b + log_b, attend_flops,
                                                    F32_FLOPS)
-    say(f"phase 6 K2 alone on {card}: fwd {t['fwd']:.4f} ms (plain {t['plain_fwd']:.4f}, "
+    say(f"phase 8 K2 alone on {card}: fwd {t['fwd']:.4f} ms (plain {t['plain_fwd']:.4f}, "
         f"bound {t['bound_fwd']:.4f} by {t['by_fwd']}), bwd {t['bwd']:.4f} ms (plain "
         f"{t['plain_bwd']:.4f}, bound {t['bound_bwd']:.4f} by {t['by_bwd']}); attend K3 "
         f"{t['attend_hm']:.4f} ms (plain {t['plain_attend_hm']:.4f}), K4 {t['attend']:.4f} ms "
@@ -579,7 +863,7 @@ def phase_step_times(torch, card, batch: int = 128, iters: int = 10):
             peak[value] = torch.cuda.max_memory_allocated() / 2 ** 30
             torch.cuda.reset_peak_memory_stats()
         on, off = sum(ms["1"]) / 2, sum(ms["0"]) / 2
-        say(f"phase 6 volo_d1 train step b={batch} 224px bf16 on {card}, {note}: "
+        say(f"phase 8 volo_d1 train step b={batch} 224px bf16 on {card}, {note}: "
             f"{var}=1 {on:.2f} ms ({batch / on * 1e3:.1f} img/s; runs {ms['1']}; peak "
             f"{peak['1']:.2f} GiB), =0 {off:.2f} ms ({batch / off * 1e3:.1f} img/s; runs "
             f"{ms['0']}; peak {peak['0']:.2f} GiB)")
@@ -593,7 +877,7 @@ def phase_step_times(torch, card, batch: int = 128, iters: int = 10):
     # runs in the order 0, 1, 1, 0: each =1 run beside the =0 run next to it
     gains = [1.0 - on / off for on, off in zip(ms["1"], ms["0"])]
     verdict = "both" if min(gains) >= 0.02 else "not both"
-    say(f"phase 6 K2 in the step: {['%.1f %%' % (100 * g) for g in gains]} faster than the "
+    say(f"phase 8 K2 in the step: {['%.1f %%' % (100 * g) for g in gains]} faster than the "
         f"unfused outlook path in the two repetitions ({verdict} at least 2 %)")
 
 
@@ -618,20 +902,29 @@ def main():
     name, card = phase_device(torch)
     phase_build()
     worst = phase_kernels(torch)
+    worst_v = phase_mhsa_variants(torch)
     worst_o = phase_outlook_kernels(torch)
     phase_model_parity(torch)
     phase_outlook_model_parity(torch)
     fixed, fixed_k2 = phase_trainer(torch)
     prog_k1, prog_k2 = phase_prog_trainer(torch)
+    deit_k1 = phase_deit(torch, card)
+    measured = phase_measure(torch)
     t = phase_kernel_times(torch, card)
+    tv = phase_mhsa_variant_times(torch, card, t)
     to, variants = phase_outlook_times(torch, card)
     phase_step_times(torch, card)
     pal = "autoprog_tpu/ops/outlook_pallas.py"
+    att = "autoprog_tpu/ops/attention_pallas.py"
+    k1 = {side: fixed[side] + prog_k1[side] + deit_k1[side] for side in ("fwd", "bwd")}
+
+    def vrow(key, src, replaces):
+        return {"name": key, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": measured[key], "max_abs_err": worst_v[key], **tv[key]}
+
     report = {"kernels": [
-        _row("mhsa_qkv_fwd", MHSA_SRC, "autoprog_tpu/ops/attention_pallas.py:206",
-             fixed["fwd"] + prog_k1["fwd"], worst["fwd"], t, "fwd"),
-        _row("mhsa_qkv_bwd", MHSA_SRC, "autoprog_tpu/ops/attention_pallas.py:228",
-             fixed["bwd"] + prog_k1["bwd"], worst["bwd"], t, "bwd"),
+        _row("mhsa_qkv_fwd", MHSA_SRC, att + ":206", k1["fwd"], worst["fwd"], t, "fwd"),
+        _row("mhsa_qkv_bwd", MHSA_SRC, att + ":228", k1["bwd"], worst["bwd"], t, "bwd"),
         _row("outlook_fused_fwd", OUTLOOK_SRC, pal + ":80", fixed_k2["fwd"] + prog_k2["fwd"],
              worst_o["fwd"], to, "fwd"),
         _row("outlook_fused_bwd", OUTLOOK_SRC, pal + ":203", fixed_k2["bwd"] + prog_k2["bwd"],
@@ -640,7 +933,14 @@ def main():
              worst_o["attend_hm"], to, "attend_hm"),
         _row("outlook_attend", OUTLOOK_SRC, pal + ":326", variants["attend"],
              worst_o["attend"], to, "attend"),
-    ]}
+        vrow("mhsa_fwd", MHSA_SRC, att + ":47"),
+        vrow("mhsa_bwd", MHSA_SRC, att + ":67"),
+        vrow("twophase", VARIANTS_SRC, "scripts/attn_variants.py:64"),
+        vrow("twophase_bf16s", VARIANTS_SRC, "scripts/attn_variants.py:64"),
+        vrow("pipelined", VARIANTS_SRC, "scripts/attn_variants.py:73"),
+    ] + [vrow(f"{order}_img{G}_{side}", VARIANTS_SRC, "scripts/bench_attn_x.py:" + line)
+         for order, G in GROUPS
+         for side, line in (("fwd", "47" if order == "phase" else "69"), ("bwd", "86"))]}
     say(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s on {card}")
     say(json.dumps(report))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,5 +1,6 @@
 """GPU-only tests of autoprog_tpu_torch: the CUDA kernels (K1, the fused
-MHSA; K2, K3, K4, the fused outlook attention and its attend variants)
+MHSA; K2, K3, K4, the fused outlook attention and its attend variants; K5,
+the MHSA on separate q, k, v; the schedule variants S1 and S2 of K1)
 against their plain PyTorch twins, on the card. They skip without a CUDA device (a CUDA
 kernel has no CPU mode); the CPU tests hold the twins against the JAX
 package.
@@ -56,7 +57,7 @@ def test_kernel_matches_twin(cuda_device, dtype, scores_f32, B, n, heads, d):
     out = A.mhsa_fused_qkv(x, heads, scale, scores_f32=scores_f32)
     out.backward(dout)
     torch.cuda.synchronize()
-    assert A.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    assert A.LAUNCHES == {**before, "fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
     assert out.dtype == x.grad.dtype == dtype
     assert_close(out, A.mhsa_fused_qkv_reference(x.detach(), heads, scale, scores_f32),
                  dtype)
@@ -233,3 +234,145 @@ def test_volo_through_the_fused_outlook_matches_the_unfused_path(cuda_device, mo
     for name, grad in runs["0"][1].items():
         torch.testing.assert_close(runs["1"][1][name], grad, rtol=1e-4, atol=1e-5,
                                    msg=name)
+
+
+# ------------------------------------------- K5 and the variants S1 / S2
+
+MHSA_SHAPES = [
+    (4, 196, 12, 32),      # volo_d1 at 224 px
+    (2, 197, 6, 64),       # deit_small
+    (3, 37, 3, 48),        # ragged n, head_dim not a power of two
+    (2, 70, 2, 24),
+]
+
+
+def _qkv(cuda_device, B, n, heads, d, dtype, seed=0):
+    g = torch.Generator(cuda_device).manual_seed(seed)
+    x = torch.randn(B, n, 3 * heads * d, device=cuda_device, generator=g).to(dtype)
+    dout = torch.randn(B, n, heads * d, device=cuda_device, generator=g).to(dtype)
+    return x, dout
+
+
+@pytest.mark.parametrize("views", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,n,heads,d", MHSA_SHAPES + [(2, 1024, 2, 128), (2, 70, 2, 20)])
+def test_mhsa_fused_kernel_matches_twin_and_k1(cuda_device, dtype, views, B, n, heads, d):
+    """K5 on the three views of a qkv buffer (read in place by stride) and on
+    contiguous tensors, against its twin and against K1 at f32 scores."""
+    x, dout = _qkv(cuda_device, B, n, heads, d, dtype)
+    scale = d ** -0.5
+    q, k, v = x.view(B, n, 3, heads, d).unbind(2)
+    if not views:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)] if not views else None
+    before = dict(A.LAUNCHES)
+    if views:
+        xr = x.clone().requires_grad_(True)
+        out = A.mhsa_fused(*xr.view(B, n, 3, heads, d).unbind(2), scale)
+        out.backward(dout.view(B, n, heads, d))
+        grads = xr.grad.view(B, n, 3, heads, d).unbind(2)
+    else:
+        out = A.mhsa_fused(*leaves, scale)
+        out.backward(dout.view(B, n, heads, d))
+        grads = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    assert A.LAUNCHES == {**before, "fused_fwd": before["fused_fwd"] + 1,
+                          "fused_bwd": before["fused_bwd"] + 1}
+    assert_close(out, A.mhsa_fused_reference(q, k, v, scale), dtype)
+    refs = A.mhsa_fused_backward_reference(q, k, v, dout.view(B, n, heads, d), scale)
+    for got, ref in zip(grads, refs):
+        assert_close(got, ref, dtype)
+    k1 = A._launch_fwd(x, heads, scale, True)
+    assert torch.equal(out.reshape(B, n, heads * d), k1)
+
+
+def test_mhsa_fused_refuses_a_strided_last_axis(cuda_device):
+    q = torch.zeros(2, 8, 2, 32, device=cuda_device).transpose(2, 3)
+    with pytest.raises(ValueError, match="last axis"):
+        A.mhsa_fused(q, q, q, 0.3)
+
+
+@pytest.mark.parametrize("name", ["twophase", "twophase_bf16s", "pipelined"])
+@pytest.mark.parametrize("B,n,heads,d", MHSA_SHAPES)
+def test_schedule_variant_matches_twin_and_k1(cuda_device, name, B, n, heads, d):
+    from autoprog_tpu_torch.scripts import attn_variants as V
+    x, dout = _qkv(cuda_device, B, n, heads, d, torch.bfloat16, seed=2)
+    scale = d ** -0.5
+    before = V.LAUNCHES[name]
+    xr = x.clone().requires_grad_(True)
+    out = V.mhsa_variant_with_shared_bwd(name)(xr, heads, scale)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert V.LAUNCHES[name] == before + 1
+    assert_close(out, V.mhsa_fwd_variant_reference(name, x, heads, scale), torch.bfloat16)
+    assert torch.equal(out, A._launch_fwd(x, heads, scale, V.SCORES_F32[name]))
+    assert_close(xr.grad, A.mhsa_fused_qkv_backward_reference(
+        x, dout, heads, scale, A.scores_f32_default()), torch.bfloat16)
+
+
+def test_schedule_variants_refuse_what_does_not_fit(cuda_device):
+    """f32 score rows of n = 1024 do not fit a block's shared memory (parked
+    at bf16 they do); `pipelined` copies 16 bytes at a time."""
+    from autoprog_tpu_torch.scripts import attn_variants as V
+    x, _ = _qkv(cuda_device, 2, 1024, 2, 128, torch.bfloat16)
+    with pytest.raises(ValueError, match="refused"):
+        V.mhsa_fwd_variant("twophase", x, 2, 0.1)
+    out = V.mhsa_fwd_variant("twophase_bf16s", x, 2, 0.1)
+    assert_close(out, V.mhsa_fwd_variant_reference("twophase_bf16s", x, 2, 0.1),
+                 torch.bfloat16)
+    x, _ = _qkv(cuda_device, 2, 33, 3, 20, torch.bfloat16)
+    with pytest.raises(ValueError, match="refused"):
+        V.mhsa_fwd_variant("pipelined", x, 3, 0.2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        V.mhsa_fwd_variant("pipelined", x.float(), 3, 0.2)
+
+
+@pytest.mark.parametrize("order,G", [("phase", 1), ("phase", 2), ("phase", 4),
+                                     ("loop", 1), ("loop", 2), ("loop", 4)])
+@pytest.mark.parametrize("B,n,heads,d", MHSA_SHAPES)
+def test_group_variant_matches_twin_and_k1(cuda_device, order, G, B, n, heads, d):
+    from autoprog_tpu_torch.scripts import bench_attn_x as X
+    B = 4                                       # a multiple of every G
+    x, dout = _qkv(cuda_device, B, n, heads, d, torch.bfloat16, seed=3)
+    scale = d ** -0.5
+    key = X.variant_name(order, G)
+    before = (X.LAUNCHES[key + "_fwd"], X.LAUNCHES[key + "_bwd"])
+    xr = x.clone().requires_grad_(True)
+    out = X.make_variant(order, G, heads, scale)(xr)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (X.LAUNCHES[key + "_fwd"], X.LAUNCHES[key + "_bwd"]) == (before[0] + 1,
+                                                                    before[1] + 1)
+    assert_close(out, X.group_reference(x, heads, scale), torch.bfloat16)
+    assert_close(xr.grad, X.group_backward_reference(x, dout, heads, scale), torch.bfloat16)
+    assert torch.equal(out, A._launch_fwd(x, heads, scale, True))
+    assert torch.equal(xr.grad, A._launch_bwd(x, dout, heads, scale, True))
+
+
+def test_group_variant_refuses_a_g_that_does_not_fit(cuda_device):
+    """The parked rows of G cells must fit one block: n = 1024 does not at
+    G = 2 (order phase); order loop parks nothing and takes it."""
+    from autoprog_tpu_torch.scripts import bench_attn_x as X
+    x, _ = _qkv(cuda_device, 2, 1024, 2, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="refused"):
+        X.make_variant("phase", 2, 2, 0.1)(x)
+    out = X.make_variant("loop", 2, 2, 0.1)(x)
+    assert_close(out, X.group_reference(x, 2, 0.1), torch.bfloat16)
+
+
+def test_deit_small_forward_through_k1_matches_unfused(cuda_device, monkeypatch):
+    """deit_small eval logits through K1 (n = 197, head_dim 64) against the
+    unfused MHSA, f32: the same formula; 1e-3 on logits of magnitude ~1."""
+    from autoprog_tpu_torch import create_model
+    torch.manual_seed(0)
+    model = create_model("deit_small_patch16_224").make(
+        num_classes=100, dtype=torch.float32).to(cuda_device)
+    x = torch.randn(2, 224, 224, 3, device=cuda_device)
+    before = A.LAUNCHES["fwd"]
+    with torch.no_grad():
+        monkeypatch.setenv("AUTOPROG_FUSED_ATTN", "0")
+        plain = model(x, train=False)
+        monkeypatch.setenv("AUTOPROG_FUSED_ATTN", "1")
+        fused = model(x, train=False)
+    assert A.LAUNCHES["fwd"] - before == 12
+    assert (fused - plain).abs().max().item() <= 1e-3

@@ -59,10 +59,14 @@ def test_import_leaves_jax_out():
             "names = [m.name for m in pkgutil.walk_packages(autoprog_tpu_torch.__path__,\n"
             "                                               'autoprog_tpu_torch.')]\n"
             "assert len(names) > 30 and 'autoprog_tpu_torch.main_prog' in names, names\n"
+            "for new in ('bench', 'models.vit', 'scripts.attn_variants',\n"
+            "            'scripts.bench_attn', 'scripts.bench_attn_x', 'scripts.timing'):\n"
+            "    assert 'autoprog_tpu_torch.' + new in names, new\n"
             "for name in names:\n"
             "    importlib.import_module(name)\n"
             "from autoprog_tpu_torch import create_model\n"
             "create_model('volo_d1').make(num_classes=10)\n"
+            "create_model('deit_small_distilled_patch16_224').make(num_classes=10)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             "       ('jax', 'jaxlib', 'flax', 'optax', 'autoprog_tpu')]\n"
             "assert not bad, bad\n")
@@ -73,7 +77,7 @@ def test_import_leaves_jax_out():
 
 def test_no_source_file_imports_jax_or_the_jax_package():
     import re
-    pat = re.compile(r"^\s*(from|import) +(autoprog_tpu\b[^_]|jax|flax|optax)", re.M)
+    pat = re.compile(r"^\s*(from|import) +(autoprog_tpu\b[^_]|jax|flax|optax|scripts\b)", re.M)
     files = glob.glob(os.path.join(REPO, "autoprog_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 30

@@ -109,7 +109,10 @@ def test_resized_pos_embed_forward_matches_flax(pair, r):
 
 
 def test_deit_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_model("deit_h2_l2")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_model("deit_tiny_patch16_224")
+    """The DeiT names build a VisionTransformer; its parity with the Flax
+    model is held in test_torch_vit.py."""
+    from autoprog_tpu_torch.models.vit import VisionTransformer
+    assert create_model("deit_h2_l2").arch.embed_dim == 128
+    mdef = create_model("deit_tiny_patch16_224")
+    assert (mdef.arch.embed_dim, mdef.arch.depth, mdef.arch.num_heads) == (192, 12, 3)
+    assert isinstance(mdef.make(num_classes=10, img_size=32), VisionTransformer)
