@@ -41,15 +41,18 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 #: C signature of every entry point: (restype, argtypes)
 SIGNATURES = {
-    # qkv, out, B, n, C, H, scale, scores_f32, dtype, stream
-    "mhsa_qkv_fwd": (_I, [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
-    # qkv, dout, dqkv, stats, B, n, C, H, scale, scores_f32, dtype, stream
-    "mhsa_qkv_bwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
-    # q, k, v, out, (image, row, head) strides of q, k, v, B, n, H, d, scale, dtype, stream
-    "mhsa_fwd": (_I, [_P] * 4 + [_L] * 9 + [_I, _I, _I, _I, _F, _I, _P]),
-    # q, k, v, dout, dq, dk, dv, stats, strides of q, k, v, dout, B, n, H, d, scale,
-    # dtype, stream
-    "mhsa_bwd": (_I, [_P] * 8 + [_L] * 12 + [_I, _I, _I, _I, _F, _I, _P]),
+    # n, head_dim, dtype -> 1 when a backward of that shape needs `scratch`
+    "mhsa_uses_scratch": (_I, [_I, _I, _I]),
+    # qkv, out, stats, B, n, C, H, scale, scores_f32, dtype, stream
+    "mhsa_qkv_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
+    # qkv, dout, dqkv, stats, scratch, B, n, C, H, scale, scores_f32, dtype, stream
+    "mhsa_qkv_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
+    # q, k, v, out, stats, (image, row, head) strides of q, k, v, B, n, H, d, scale, dtype,
+    # stream
+    "mhsa_fwd": (_I, [_P] * 5 + [_L] * 9 + [_I, _I, _I, _I, _F, _I, _P]),
+    # q, k, v, dout, dq, dk, dv, stats, scratch, strides of q, k, v, dout, B, n, H, d,
+    # scale, dtype, stream
+    "mhsa_bwd": (_I, [_P] * 9 + [_L] * 12 + [_I, _I, _I, _I, _F, _I, _P]),
     # qkv, out, B, n, C, H, scale, variant, stream
     "mhsa_variant_fwd": (_I, [_P, _P, _I, _I, _I, _I, _F, _I, _P]),
     # qkv, out, B, n, C, H, scale, G, phase, stream

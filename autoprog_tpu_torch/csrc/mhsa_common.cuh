@@ -26,6 +26,14 @@
 // operand of the next product (the accumulator and A layouts of m16n8k16 line
 // up). Head dims are zero-padded to DP = 32, 64 or 128 in shared memory; rows
 // and keys past n are masked.
+//
+// Two families of bodies share these rules. The streaming cells (fwd_cell,
+// bwd_dq_cell, bwd_dkv_cell) walk K and V in tiles of 64 keys through shared
+// memory with a barrier around every load; the schedule variants of
+// mhsa_variants.cu are built from them, and K1 / K5 run them above n = 256 or
+// head_dim 64. The resident helpers further down (cp.async tiles, ldmatrix
+// fragments, the cheap element-wise steps) are what the K1 / K5 kernels of
+// mhsa_qkv.cu run below that.
 
 #pragma once
 
@@ -132,7 +140,8 @@ __device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
 
 // two f32 values rounded to bf16 (nearest even), the lower column first
 __device__ __forceinline__ uint32_t pack2f(float lo, float hi) {
-    return pack2(__float2bfloat16(lo), __float2bfloat16(hi));
+    const __nv_bfloat162 two = __floats2bfloat162_rn(lo, hi);  // one cvt.rn.bf16x2.f32
+    return *reinterpret_cast<const uint32_t*>(&two);
 }
 
 // Fragments of m16n8k16 (g = lane / 4, t = lane % 4):
@@ -327,12 +336,259 @@ template <int N> __device__ __forceinline__ void scale_acc(float (&acc)[N][4], f
         for (int e = 0; e < 4; ++e) acc[i][e] *= a;
 }
 
+// ------------------------------------------------ asynchronous tile loads
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// load_tile by asynchronous 16-byte copies; rows past n and lanes past d are
+// zeroed by plain stores. Needs d % 8 == 0 and an aligned slab.
+template <int DP>
+__device__ void async_tile(bf16* dst, const bf16* __restrict__ src, long long stride, int r0,
+                           int rows, int n, int d) {
+    constexpr int LD = DP + PAD, CH = DP / 8;
+    for (int idx = threadIdx.x; idx < rows * CH; idx += blockDim.x) {
+        const int r = idx / CH, c = (idx - r * CH) * 8;
+        bf16* to = dst + r * LD + c;
+        if (r0 + r < n && c < d) cp_async16(to, src + (long long)(r0 + r) * stride + c);
+        else *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
+    }
+}
+
+// q -> qs = T(f32(q) * scale) in place, each thread on the 16-byte chunks it
+// copied itself in async_tile (same index walk), so it needs no barrier
+// between its own cp.async.wait_group and this
+template <int DP>
+__device__ void scale_own_chunks(bf16* dst, int r0, int rows, int n, int d, float scale) {
+    constexpr int LD = DP + PAD, CH = DP / 8;
+    for (int idx = threadIdx.x; idx < rows * CH; idx += blockDim.x) {
+        const int r = idx / CH, c = (idx - r * CH) * 8;
+        if (r0 + r < n && c < d) {
+            uint4 v = *reinterpret_cast<uint4*>(dst + r * LD + c);
+            bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) e[k] = __float2bfloat16(__bfloat162float(e[k]) * scale);
+            *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
+        }
+    }
+}
+
+// One tile on its way to shared memory: asynchronously when the slab takes
+// 16-byte copies (q is then scaled later by scale_own_chunks), else by the
+// element loads of load_tile, which are complete when this returns.
+template <int DP>
+__device__ __forceinline__ void fetch_tile(bf16* dst, const bf16* __restrict__ src,
+                                           long long stride, int r0, int rows, int n, int d,
+                                           float scale, bool as_qs, int vec) {
+    if (vec) async_tile<DP>(dst, src, stride, r0, rows, n, d);
+    else load_tile<DP>(dst, src, stride, r0, rows, n, d, scale, as_qs, false);
+}
+
+// ------------------------------------------------------ ldmatrix fragments
+//
+// ldmatrix.x4 reads four 8 x 8 bf16 matrices; lane l gives the address of row
+// l % 8 of matrix l / 8, and gets of each matrix the pair at (row l / 4,
+// columns 2 (l % 4)..), or with .trans at (rows 2 (l % 4).., column l / 4):
+// exactly the A and B fragments of m16n8k16, in one load where the
+// element loads above take four to eight. Rows of a tile are LD * 2 bytes
+// apart (80 or 144: a multiple of 16, and eight of them fall in distinct
+// banks).
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+    const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+    const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(a));
+}
+
+// The A fragments of rows r0 .. r0 + 16 of a tile, one per k-step
+template <int DP>
+__device__ __forceinline__ void load_a(uint32_t (&a)[DP / 16][4], const bf16* sA, int r0,
+                                       int lane) {
+    constexpr int LD = DP + PAD;
+    const bf16* pa = sA + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) ldsm_x4(a[ks], pa + ks * 16);
+}
+
+// mma_abt with ldmatrix: acc[16 x NN] = A . sB[0 .. NN)^T, A as load_a gave
+// it. One x4 gives the B fragments of two n-tiles; it is sent one step
+// before the two mma that use it (the asm statements keep their order, so
+// the load is ahead of its use only if the source puts it there). The
+// k-steps of an accumulator come in mma_abt's order.
+template <int DP, int NN>
+__device__ __forceinline__ void mma_abt_frag(float (&acc)[NN / 8][4],
+                                             const uint32_t (&a)[DP / 16][4], const bf16* sB,
+                                             int lane) {
+    constexpr int LD = DP + PAD, STEPS = (DP / 16) * (NN / 16);
+    zero_acc(acc);
+    const bf16* pb = sB + ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
+    uint32_t b[2][4];
+    ldsm_x4(b[0], pb);
+#pragma unroll
+    for (int i = 0; i < STEPS; ++i) {  // i = ks * (NN / 16) + np
+        const int ks = i / (NN / 16), np = i % (NN / 16);
+        if (i + 1 < STEPS) {
+            const int ks1 = (i + 1) / (NN / 16), np1 = (i + 1) % (NN / 16);
+            ldsm_x4(b[(i + 1) & 1], pb + np1 * 16 * LD + ks1 * 16);
+        }
+        mma_bf16(acc[2 * np], a[ks], b[i & 1][0], b[i & 1][1]);
+        mma_bf16(acc[2 * np + 1], a[ks], b[i & 1][2], b[i & 1][3]);
+    }
+}
+
+// mma_pv with ldmatrix.trans and A already packed: acc[16 x DP] += p .
+// s[0 .. NN)[0 .. DP), p[kk] the A fragment of k-step kk; B one step ahead
+template <int DP, int NN>
+__device__ __forceinline__ void mma_pv_ld(float (&acc)[DP / 8][4],
+                                          const uint32_t (&p)[NN / 16][4], const bf16* s,
+                                          int lane) {
+    constexpr int LD = DP + PAD, STEPS = (NN / 16) * (DP / 16);
+    const bf16* pb = s + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+    uint32_t b[2][4];
+    ldsm_x4_t(b[0], pb);
+#pragma unroll
+    for (int i = 0; i < STEPS; ++i) {  // i = kk * (DP / 16) + dd
+        const int kk = i / (DP / 16), dd = i % (DP / 16);
+        if (i + 1 < STEPS) {
+            const int kk1 = (i + 1) / (DP / 16), dd1 = (i + 1) % (DP / 16);
+            ldsm_x4_t(b[(i + 1) & 1], pb + kk1 * 16 * LD + dd1 * 16);
+        }
+        mma_bf16(acc[2 * dd], p[kk], b[i & 1][0], b[i & 1][1]);
+        mma_bf16(acc[2 * dd + 1], p[kk], b[i & 1][2], b[i & 1][3]);
+    }
+}
+
+// the A fragments of a whole 16 x NN accumulator, rounded to bf16
+template <int NN>
+__device__ __forceinline__ void pack_acc(uint32_t (&p)[NN / 16][4], const float (&c)[NN / 8][4]) {
+#pragma unroll
+    for (int kk = 0; kk < NN / 16; ++kk) acc_to_a(p[kk], c[2 * kk], c[2 * kk + 1]);
+}
+
+// the two bf16 halves of a packed pair, as f32 (exact)
+__device__ __forceinline__ float unpack_lo(uint32_t x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float unpack_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+
+// store_rows with the two neighbouring lanes of a thread as one 32-bit store
+// (`pk`: the destination is 4-byte aligned, its strides and d are even)
+template <int DP>
+__device__ __forceinline__ void store_rows_pk(bf16* __restrict__ dst, long long row_stride,
+                                              const float (&acc)[DP / 8][4], int r0, int n, int d,
+                                              int g, int t, int pk) {
+    if (!pk) {
+        store_rows<DP>(dst, row_stride, acc, r0, n, d, g, t);
+        return;
+    }
+#pragma unroll
+    for (int dt = 0; dt < DP / 8; ++dt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int r = r0 + g + hh * 8, c = dt * 8 + 2 * t;
+            if (r < n && c < d)
+                *reinterpret_cast<uint32_t*>(dst + (long long)r * row_stride + c) =
+                    pack2f(acc[dt][2 * hh], acc[dt][2 * hh + 1]);
+        }
+}
+
+// ------------------------------------- element-wise work on a score fragment
+//
+// The resident path is bound by the operations it spends per score, so
+// these spend few: two scores are rounded by one cvt, the mask is tested once
+// per fragment, exp is one fma and one
+// ex2.approx (exp(s - m) = 2^(s log2(e) - m log2(e)); the row maximum itself
+// stays exact), and a division by z is a multiplication by 1 / z taken once
+// per row. Against expf and a division per score that moves a result by a few
+// f32 ulp before the roundings to T that the function prescribes.
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float fast_exp2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// -inf in the columns past n of a fragment whose first column is c0; one
+// test for the whole fragment where it ends before n
+template <int NN>
+__device__ __forceinline__ void mask_scores(float (&s)[NN / 8][4], int c0, int n, int t) {
+    if (c0 + NN <= n) return;
+#pragma unroll
+    for (int nt = 0; nt < NN / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            if (c0 + nt * 8 + 2 * t + (e & 1) >= n) s[nt][e] = -INFINITY;
+}
+
+// round a fragment to bf16 in place, two scores a cvt
+template <int NN> __device__ __forceinline__ void round_scores(float (&s)[NN / 8][4]) {
+#pragma unroll
+    for (int nt = 0; nt < NN / 8; ++nt) {
+        const uint32_t lo = pack2f(s[nt][0], s[nt][1]), hi = pack2f(s[nt][2], s[nt][3]);
+        s[nt][0] = unpack_lo(lo), s[nt][1] = unpack_hi(lo);
+        s[nt][2] = unpack_lo(hi), s[nt][3] = unpack_hi(hi);
+    }
+}
+
+// s <- exp(s - rowmax) with ml = rowmax * log2(e); the row sums into z0 / z1
+template <int NN>
+__device__ __forceinline__ void tile_exp2(float (&s)[NN / 8][4], float ml0, float ml1, float& z0,
+                                          float& z1) {
+#pragma unroll
+    for (int nt = 0; nt < NN / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float ex = fast_exp2(fmaf(s[nt][e], LOG2E, e < 2 ? -ml0 : -ml1));
+            if (e < 2) z0 += ex; else z1 += ex;
+            s[nt][e] = ex;
+        }
+}
+
+// the same, and T(e) packed as the A fragments of T(e) . V in the same walk
+template <int NN>
+__device__ __forceinline__ void tile_exp2_pack(uint32_t (&p)[NN / 16][4], float (&s)[NN / 8][4],
+                                               float ml0, float ml1, float& z0, float& z1) {
+#pragma unroll
+    for (int kk = 0; kk < NN / 16; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float ex =
+                    fast_exp2(fmaf(s[2 * kk + j][e], LOG2E, e < 2 ? -ml0 : -ml1));
+                if (e < 2) z0 += ex; else z1 += ex;
+                s[2 * kk + j][e] = ex;
+            }
+        acc_to_a(p[kk], s[2 * kk], s[2 * kk + 1]);
+    }
+}
+
 // ------------------------------------------------- one (tile, head, image)
 //
 // No pass keeps a score row, so the scores are recomputed, bit for bit, in
 // each pass that needs them:
-//   forward  1: rowmax(S)          2: e, z and T(e) . V
-//   dQ pass  1: rowmax(S)          2: z and rowsum(dP * e) / z
+//   forward  1: rowmax(S)          2: e, z and T(e) . V; (max, z) to `fst`
+//                                     when the caller wants them
+//   dQ pass  1: rowmax(S), or read from the forward's `fst`
+//            2: z and rowsum(dP * e) / z
 //            3: dS and dS . K, then (max, z, rowsum) to `stats`
 //   dK/dV    per key tile, loop over query tiles: p and dS from `stats`,
 //            T(p)^T . dO and dS^T . qs accumulated in registers.
@@ -344,7 +600,7 @@ template <int DP>
 __device__ void fwd_cell(bf16* sQ, bf16* sK, bf16* sV, const bf16* qb, long long q_row,
                          const bf16* kb, long long k_row, const bf16* vb, long long v_row,
                          bf16* ob, long long o_row, int q0, int n, int d, float scale,
-                         int scores_f32, int vec) {
+                         int scores_f32, int vec, float2* fst = nullptr) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const int wr = (threadIdx.x >> 5) * 16;  // the warp's first row in the tile
     const int mq = (blockDim.x >> 5) * 16;
@@ -385,6 +641,10 @@ __device__ void fwd_cell(bf16* sQ, bf16* sK, bf16* sV, const bf16* qb, long long
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[dt][e] /= e < 2 ? z0 : z1;
     store_rows<DP>(ob + (long long)q0 * o_row, o_row, o, wr, n - q0, d, g, t);
+    if (fst != nullptr && t == 0) {  // (max, z) of this (image, head), for the backward
+        if (q0 + wr + g < n) fst[q0 + wr + g] = make_float2(m0, z0);
+        if (q0 + wr + g + 8 < n) fst[q0 + wr + g + 8] = make_float2(m1, z1);
+    }
 }
 
 // dQ and the row statistics. Shared tiles: sQ and sDO [16 W, LD], sK and sV
@@ -394,7 +654,7 @@ __device__ void bwd_dq_cell(bf16* sQ, bf16* sDO, bf16* sK, bf16* sV, const bf16*
                             long long q_row, const bf16* kb, long long k_row, const bf16* vb,
                             long long v_row, const bf16* gb, long long g_row, bf16* dqb,
                             long long dq_row, float3* st, int q0, int n, int d, float scale,
-                            int scores_f32, int vec) {
+                            int scores_f32, int vec, const float2* fst = nullptr) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const int wr = (threadIdx.x >> 5) * 16;
     const int mq = (blockDim.x >> 5) * 16;
@@ -403,17 +663,22 @@ __device__ void bwd_dq_cell(bf16* sQ, bf16* sDO, bf16* sK, bf16* sV, const bf16*
     load_tile<DP>(sDO, gb, g_row, q0, mq, n, d, 1.f, false, vec);
 
     float m0 = -INFINITY, m1 = -INFINITY;
-    for (int k0 = 0; k0 < n; k0 += MK) {
-        __syncthreads();
-        load_tile<DP>(sK, kb, k_row, k0, MK, n, d, 1.f, false, vec);
-        __syncthreads();
-        float s[MK / 8][4];
-        mma_abt<DP, MK>(s, sQ, wr, sK, g, t);
-        finish_scores<MK>(s, k0, n, t, scores_f32);
-        tile_max<MK>(s, m0, m1);
+    if (fst != nullptr) {  // the forward saved the maxima: no pass for them
+        m0 = q0 + wr + g < n ? fst[q0 + wr + g].x : 0.f;
+        m1 = q0 + wr + g + 8 < n ? fst[q0 + wr + g + 8].x : 0.f;
+    } else {
+        for (int k0 = 0; k0 < n; k0 += MK) {
+            __syncthreads();
+            load_tile<DP>(sK, kb, k_row, k0, MK, n, d, 1.f, false, vec);
+            __syncthreads();
+            float s[MK / 8][4];
+            mma_abt<DP, MK>(s, sQ, wr, sK, g, t);
+            finish_scores<MK>(s, k0, n, t, scores_f32);
+            tile_max<MK>(s, m0, m1);
+        }
+        m0 = quad_max(m0);
+        m1 = quad_max(m1);
     }
-    m0 = quad_max(m0);
-    m1 = quad_max(m1);
 
     // z = rowsum(e) and rowsum(dP * p) = rowsum(dP * e) / z
     float z0 = 0.f, z1 = 0.f, r0 = 0.f, r1 = 0.f;

@@ -22,26 +22,60 @@
 // slice in place by the strides, so nothing is transposed. Scores are always
 // f32.
 //
-// Numerics follow the Pallas kernels exactly (rounding points in
-// mhsa_common.cuh).
+// The rounding points are the Pallas kernels' (mhsa_common.cuh).
 //
-// What bounds it at the VOLO shape (n = 196, d = 32): per head the forward
-// does about 2 * n^2 * d FLOP (2.5 MFLOP) against 3 * n * d * 2 bytes read
-// (38 KB), ~65 FLOP per byte, and the n x n score matrix plus its row
-// softmax is the only large intermediate. So the score matrix and softmax,
-// not HBM, set the pace. The design keeps every score out of device memory
-// and streams K and V tiles of the head through shared memory; blocks are
-// (query or key tile, head, image). The backward is two kernels so that no
-// block carries a sum across blocks: pass A (per query tile) recomputes the
-// scores, writes dQ and the per-row statistics (max, sum, rowsum(dP * p));
-// pass B (per key tile) recomputes p and dS from those statistics and
-// accumulates dK and dV over all query rows in registers. Blocks run in any
-// order.
+// What bounds it on this card. At the VOLO shape (B = 128, n = 196, d = 32,
+// 12 heads) a call moves 77 MB forward and 135 MB backward (q, k, v, out; q,
+// k, v, dout and the gradient; once each), 0.023 and 0.040 ms at 3.35 TB/s,
+// against 7.6 and 19 GFLOP of products (0.008 and 0.019 ms at the bf16 peak)
+// and 59 M exponentials a pass: by the roofline bytes bound it. The first
+// design (one block per 64 query rows, K and V streamed through shared memory
+// in tiles of 64 keys with a barrier around every load, the scores recomputed
+// in each pass) ran at a tenth of that bound: it was bound by latency, not
+// by bytes or arithmetic, since nothing was in flight while the tensor cores
+// worked, a block lived for four tile loads, a head's K and V were fetched
+// twelve times, and the scores were computed three times forward and four
+// times backward.
 //
-// bf16, the training path, runs its products on the tensor cores
-// (mma.sync, mhsa_common.cuh), with the scores in registers. f32 runs them as
-// scalar FMAs with the score rows in shared memory (the next section).
-// wgmma/TMA is later work.
+// The design, for bf16 with n <= 256 and head_dim <= 64 (the resident path;
+// the switch is by shape alone, RES_MAX_N and RES_MAX_D below):
+//   * A block takes whole (image, head) cells. K and V of the cell (and the
+//     block's q rows; in the backward all of q, k, v and dO) are fetched once
+//     by cp.async into shared memory, K first, so that q k^T starts while V
+//     is still in flight. A slab that takes no 16-byte copies goes through
+//     the element loads instead, in the same kernels.
+//   * A block walks over several cells (a grid sized from what is resident
+//     on the card), and where a second buffer costs no residency it fetches
+//     the next cell while it computes this one; else the other blocks of the
+//     SM cover the load.
+//   * A warp owns 16 query rows and walks the resident K and V 16 keys a
+//     step. Fragments come from shared memory by ldmatrix (V and K
+//     transposed by ldmatrix.trans), each sent a step ahead of its mma.
+//   * With everything resident and loads off the critical path, what bounds
+//     the kernels is the operations they spend per score and the registers
+//     that set how many warps hide each other's latencies. So no score row
+//     is held: the forward computes q k^T twice (row maxima, then exp and
+//     T(e) . V) and phase A of the backward computes the scores and dP twice,
+//     out of shared memory, and twice as many warps are resident as when a
+//     warp held its 16 x n row in n / 2 registers. Per score the kernels
+//     spend one cvt per two roundings, one fma and one ex2.approx for exp
+//     (the row maximum stays exact), a multiplication by 1 / z taken once
+//     per row, and a mask test per 16-key step.
+//   * The forward writes (rowmax, z) per row, [B, heads, n, 2] f32, when the
+//     caller wants a backward; the backward reads them instead of computing
+//     them again.
+//   * The backward is one kernel per cell in two phases over the same
+//     resident tiles, the row sums passed in shared memory. No block carries
+//     a sum to another and there are no atomics, so a result does not change
+//     from run to run.
+// Against the streaming cells the results differ by the f32 operations
+// above (ex2.approx for expf, 1 / z), within 2 ulp of bf16.
+// Above the resident path (n up to 1024, head_dim up to 128) the streaming
+// cells of mhsa_common.cuh run as before, one (tile, head, image) per block,
+// two kernels backward; they too write and read the saved statistics.
+//
+// f32, the reference path of the tests, runs scalar FMAs with the score rows
+// in shared memory (the next section). wgmma and TMA are not used (PERF.md).
 
 #include "mhsa_common.cuh"
 
@@ -118,8 +152,8 @@ __device__ void scores_rows(float* sS, const float* sQ, float* sKV, int ld,
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
-mhsa_fwd_kernel(Slab<const T> q, Slab<const T> k, Slab<const T> v, Slab<T> out, int n, int d,
-                float scale, int scores_f32) {
+mhsa_fwd_kernel(Slab<const T> q, Slab<const T> k, Slab<const T> v, Slab<T> out,
+                float2* __restrict__ fst, int n, int d, int H, float scale, int scores_f32) {
     extern __shared__ float smem[];
     const int ld = d + 1;  // odd row pitch: column reads across rows hit distinct banks
     const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
@@ -146,7 +180,11 @@ mhsa_fwd_kernel(Slab<const T> q, Slab<const T> k, Slab<const T> v, Slab<T> out, 
             row[j] = round_to<T>(e);
         }
         z = warp_sum(z);
-        if (lane == 0) sZ[i] = z;
+        if (lane == 0) {
+            sZ[i] = z;
+            if (fst != nullptr && q0 + i < n)
+                fst[((size_t)b * H + h) * n + q0 + i] = make_float2(m, z);
+        }
     }
 
     // O = T(e) . V, each thread owns TQ * d / NT outputs
@@ -185,12 +223,13 @@ mhsa_fwd_kernel(Slab<const T> q, Slab<const T> k, Slab<const T> v, Slab<T> out, 
 
 // ------------------------------------------------- backward pass A: dQ, stats
 
-// stats[(b * H + h) * n + i] = (rowmax, rowsum(e), rowsum(dP * p))
+// stats[(b * H + h) * n + i] = (rowmax, rowsum(e), rowsum(dP * p)) for pass B;
+// rowmax and rowsum(e) come from the forward's `fst` when it is given
 template <typename T>
 __global__ void __launch_bounds__(NT)
 mhsa_bwd_dq_kernel(Slab<const T> q, Slab<const T> k, Slab<const T> v, Slab<const T> dout,
-                   Slab<T> dq, float3* __restrict__ stats, int n, int d, int H, float scale,
-                   int scores_f32) {
+                   Slab<T> dq, const float2* __restrict__ fst, float3* __restrict__ stats, int n,
+                   int d, int H, float scale, int scores_f32) {
     extern __shared__ float smem[];
     const int ld = d + 1;
     const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
@@ -213,12 +252,16 @@ mhsa_bwd_dq_kernel(Slab<const T> q, Slab<const T> k, Slab<const T> v, Slab<const
     for (int t = 0; t < TQ / (NT / 32); ++t) {
         const int i = warp + t * (NT / 32);
         float* row = sP + i * n;
-        float m = -INFINITY;
-        for (int j = lane; j < n; j += 32) m = fmaxf(m, row[j]);
-        m = warp_max(m);
-        float z = 0.f;
-        for (int j = lane; j < n; j += 32) z += expf(row[j] - m);
-        z = warp_sum(z);
+        float m = -INFINITY, z = 0.f;
+        if (fst != nullptr && q0 + i < n) {  // saved by the forward
+            const float2 mz = fst[((size_t)b * H + h) * n + q0 + i];
+            m = mz.x, z = mz.y;
+        } else {
+            for (int j = lane; j < n; j += 32) m = fmaxf(m, row[j]);
+            m = warp_max(m);
+            for (int j = lane; j < n; j += 32) z += expf(row[j] - m);
+            z = warp_sum(z);
+        }
         for (int j = lane; j < n; j += 32) row[j] = expf(row[j] - m) / z;
         row_m[t] = m;
         row_z[t] = z;
@@ -368,14 +411,16 @@ mhsa_bwd_dkv_kernel(Slab<const T> q, Slab<const T> k, Slab<const T> v, Slab<cons
     }
 }
 
-// ------------------------------------------- bf16: tensor-core (mma.sync)
+// --------------------------------- bf16, streaming: one cell per block
 //
-// One cell of mhsa_common.cuh per block; blocks are (tile, head, image).
+// The cells of mhsa_common.cuh; blocks are (tile, head, image). They take
+// what the resident path does not: n > RES_MAX_N or head_dim > RES_MAX_D.
 
 template <int DP>
 __global__ void __launch_bounds__(MT)
-mhsa_fwd_mma(Slab<const bf16> q, Slab<const bf16> k, Slab<const bf16> v, Slab<bf16> out, int n,
-             int d, float scale, int scores_f32, int vec) {
+mhsa_fwd_mma(Slab<const bf16> q, Slab<const bf16> k, Slab<const bf16> v, Slab<bf16> out,
+             float2* __restrict__ fst, int n, int d, int H, float scale, int scores_f32,
+             int vec) {
     constexpr int LD = DP + PAD;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [MQ, LD] qs
@@ -383,14 +428,16 @@ mhsa_fwd_mma(Slab<const bf16> q, Slab<const bf16> k, Slab<const bf16> v, Slab<bf
     bf16* sV = sK + MK * LD;                         // [MK, LD]
     const int h = blockIdx.y, b = blockIdx.z;
     fwd_cell<DP>(sQ, sK, sV, q.at(b, h), q.row, k.at(b, h), k.row, v.at(b, h), v.row,
-                 out.at(b, h), out.row, blockIdx.x * MQ, n, d, scale, scores_f32, vec);
+                 out.at(b, h), out.row, blockIdx.x * MQ, n, d, scale, scores_f32, vec,
+                 fst ? fst + ((size_t)b * H + h) * n : nullptr);
 }
 
 template <int DP>
 __global__ void __launch_bounds__(MT)
 mhsa_bwd_dq_mma(Slab<const bf16> q, Slab<const bf16> k, Slab<const bf16> v,
-                Slab<const bf16> dout, Slab<bf16> dq, float3* __restrict__ stats, int n, int d,
-                int H, float scale, int scores_f32, int vec) {
+                Slab<const bf16> dout, Slab<bf16> dq, const float2* __restrict__ fst,
+                float3* __restrict__ stats, int n, int d, int H, float scale, int scores_f32,
+                int vec) {
     constexpr int LD = DP + PAD;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [MQ, LD] qs
@@ -401,7 +448,7 @@ mhsa_bwd_dq_mma(Slab<const bf16> q, Slab<const bf16> k, Slab<const bf16> v,
     bwd_dq_cell<DP>(sQ, sDO, sK, sV, q.at(b, h), q.row, k.at(b, h), k.row, v.at(b, h), v.row,
                     dout.at(b, h), dout.row, dq.at(b, h), dq.row,
                     stats + ((size_t)b * H + h) * n, blockIdx.x * MQ, n, d, scale, scores_f32,
-                    vec);
+                    vec, fst ? fst + ((size_t)b * H + h) * n : nullptr);
 }
 
 template <int DP>
@@ -425,6 +472,312 @@ mhsa_bwd_dkv_mma(Slab<const bf16> q, Slab<const bf16> k, Slab<const bf16> v,
                      vec);
 }
 
+// ------------------------------ bf16, resident path: whole cells per block
+//
+// K and V of an (image, head) cell stay in shared memory as tiles of
+// [16 steps][DP + PAD] bf16, steps = ceil(n / 16) at run time; each warp owns
+// 16 query rows (or 16 keys) at a time and walks the tiles 16 rows a step.
+
+constexpr int RES_MAX_N = 256;  // the resident path takes n <= 256 ...
+constexpr int RES_MAX_D = 64;   // ... and head_dim <= 64; the rest streams
+
+// Warps per block. An SM's registers are four files of 16 K, one per
+// sub-core, and a block's warps are dealt round over them: the warps resident
+// on one sub-core bound the registers a thread may have (7 -> 72, 4 -> 128,
+// 3 -> 168, 2 -> 255). Forward: a block takes 16 W query rows of a cell, all
+// of them up to 7 groups of 16, then about half (9 -> 5, 13 -> 7, 16 -> 8),
+// and as many blocks are resident as make 28 warps at head_dim 32 (72
+// registers) and 14 at 64 (128 registers).
+template <int NS> constexpr int FWD_W = NS <= 7 ? NS : (NS + 1) / 2;
+template <int DP, int W> constexpr int RES_MIN_BLOCKS = (DP <= 32 ? 28 : 14) / W;
+
+// Forward in two sweeps over the resident K: the first keeps only the row
+// maxima, the second computes the same scores again, bit for bit, and goes on
+// to exp, the row sums and T(e) . V, 16 keys at a time. It holds no score
+// row. (Holding the 16 x n row of a warp in n / 2 registers, for one q k^T,
+// left 14 warps on an SM, spilled at n = 196 and was a quarter slower:
+// PERF.md. The second q k^T reads shared memory only.) A work item is (cell,
+// chunk of 16 W query rows); the block walks items blockIdx.x, + gridDim.x,
+// ... One buffer holds the chunk's q rows and the cell's K and V. q and K are
+// one cp.async group and V the next, so the first sweep runs while V lands;
+// with nbuf == 2 the next item is fetched into the other buffer meanwhile.
+template <int DP, int W>
+__global__ void __launch_bounds__(32 * W, RES_MIN_BLOCKS<DP, W>)
+mhsa_fwd_res(Slab<const bf16> q, Slab<const bf16> k, Slab<const bf16> v, Slab<bf16> out,
+             float2* __restrict__ fst, int n, int d, int H, float scale, int scores_f32, int vec,
+             int pk, int items, int chunks, int nbuf, int steps) {
+    constexpr int LD = DP + PAD, QR = 16 * W;
+    const int NN = 16 * steps, BUF = (QR + 2 * NN) * LD;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* base = reinterpret_cast<bf16*>(smem_raw);
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int wr = (threadIdx.x >> 5) * 16;
+
+    auto fetch = [&](int item, bf16* s) {
+        const int cell = item / chunks, q0 = (item - cell * chunks) * QR;
+        const int b = cell / H, h = cell - b * H;
+        fetch_tile<DP>(s, q.at(b, h), q.row, q0, QR, n, d, scale, true, vec);
+        fetch_tile<DP>(s + QR * LD, k.at(b, h), k.row, 0, NN, n, d, 1.f, false, vec);
+        cp_async_commit();
+        fetch_tile<DP>(s + (QR + NN) * LD, v.at(b, h), v.row, 0, NN, n, d, 1.f, false, vec);
+        cp_async_commit();
+    };
+
+    int item = blockIdx.x, cur = 0;
+    if (item < items) fetch(item, base);
+    for (; item < items; item += gridDim.x) {
+        bf16* sQ = base + cur * BUF;
+        bf16* sK = sQ + QR * LD;
+        bf16* sV = sK + NN * LD;
+        const int next = item + gridDim.x;
+        const bool ahead = nbuf == 2 && next < items;
+        if (ahead) fetch(next, base + (cur ^ 1) * BUF);
+        const int cell = item / chunks, q0 = (item - cell * chunks) * QR;
+        const int b = cell / H, h = cell - b * H;
+
+        if (ahead) cp_async_wait<3>(); else cp_async_wait<1>();  // q and K are here
+        if (vec) scale_own_chunks<DP>(sQ, q0, QR, n, d, scale);
+        __syncthreads();
+        const bool active = q0 + wr < n;
+        uint32_t aq[DP / 16][4];
+        float m0 = -INFINITY, m1 = -INFINITY;
+        if (active) {
+            load_a<DP>(aq, sQ, wr, lane);
+#pragma unroll 2
+            for (int kk = 0; kk < steps; ++kk) {
+                float s[2][4];
+                mma_abt_frag<DP, 16>(s, aq, sK + kk * 16 * LD, lane);
+                mask_scores<16>(s, kk * 16, n, t);
+                m0 = fmaxf(m0, fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1])));
+                m1 = fmaxf(m1, fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3])));
+            }
+            m0 = quad_max(m0);
+            m1 = quad_max(m1);
+            if (!scores_f32) {  // rounding is monotone: the maximum of the rounded scores
+                m0 = round_to<bf16>(m0);
+                m1 = round_to<bf16>(m1);
+            }
+        }
+        if (ahead) cp_async_wait<2>(); else cp_async_wait<0>();  // V is here
+        __syncthreads();
+        if (active) {
+            const float ml0 = m0 * LOG2E, ml1 = m1 * LOG2E;
+            float z0 = 0.f, z1 = 0.f;
+            float o[DP / 8][4];
+            zero_acc(o);
+#pragma unroll 2
+            for (int kk = 0; kk < steps; ++kk) {
+                float s[2][4];
+                mma_abt_frag<DP, 16>(s, aq, sK + kk * 16 * LD, lane);
+                if (!scores_f32) round_scores<16>(s);
+                mask_scores<16>(s, kk * 16, n, t);
+                uint32_t e[1][4];
+                tile_exp2_pack<16>(e, s, ml0, ml1, z0, z1);
+                mma_pv_ld<DP, 16>(o, e, sV + kk * 16 * LD, lane);
+            }
+            z0 = quad_sum(z0);
+            z1 = quad_sum(z1);
+            const float rz0 = 1.f / z0, rz1 = 1.f / z1;
+#pragma unroll
+            for (int dt = 0; dt < DP / 8; ++dt)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) o[dt][c] *= c < 2 ? rz0 : rz1;
+            store_rows_pk<DP>(out.at(b, h) + (long long)q0 * out.row, out.row, o, wr, n - q0, d,
+                              g, t, pk);
+            if (fst != nullptr && t == 0) {
+                float2* st = fst + (size_t)cell * n + q0 + wr + g;
+                if (q0 + wr + g < n) st[0] = make_float2(m0, z0);
+                if (q0 + wr + g + 8 < n) st[8] = make_float2(m1, z1);
+            }
+        }
+        __syncthreads();  // every warp is done with this buffer
+        if (nbuf == 1 && next < items) fetch(next, base);
+        if (nbuf == 2) cur ^= 1;
+    }
+}
+
+// Backward, both phases of a cell in one block. One buffer holds qs, K, V
+// and dO of the cell, [4][16 steps][LD]; sSt holds (rowmax log2(e), 1 / z,
+// rowsum(dP p)) per query row between the phases, so no statistics go
+// through device memory. Phase A, per 16 query rows, walks K and V twice, 16
+// keys a step: first for rowsum(dP e), then, with the scores, exp and dP of
+// the step computed again, for dS and dQ (5 products); phase B, per 16 keys,
+// walks the queries once (S^T, dP^T, T(p)^T dO, T(dS)^T qs). Nothing of a
+// row is held between the walks. (Holding exp(S - max) of a row in n / 2
+// registers saves a product and costs half the resident warps: equal at n =
+// 196, slower at 100 and 144, spills at head_dim 64. Holding S packed at bf16
+// and dP as well, for 7 products, was slower still: PERF.md.)
+template <int DP, int W, int MINB>
+__global__ void __launch_bounds__(32 * W, MINB)
+mhsa_bwd_res(Slab<const bf16> q, Slab<const bf16> k, Slab<const bf16> v, Slab<const bf16> dout,
+             Slab<bf16> dq, Slab<bf16> dk, Slab<bf16> dv, const float2* __restrict__ fst, int n,
+             int d, int H, float scale, int scores_f32, int vec, int pk, int items, int nbuf,
+             int steps) {
+    constexpr int LD = DP + PAD;
+    const int NN = 16 * steps, TILE = NN * LD, BUF = 4 * TILE;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float3* sSt = reinterpret_cast<float3*>(smem_raw);  // [NN], 192 bytes a step
+    bf16* base = reinterpret_cast<bf16*>(smem_raw + sizeof(float3) * NN);
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int warp = threadIdx.x >> 5;
+
+    auto fetch = [&](int cell, bf16* s) {
+        const int b = cell / H, h = cell - b * H;
+        fetch_tile<DP>(s, q.at(b, h), q.row, 0, NN, n, d, scale, true, vec);
+        fetch_tile<DP>(s + TILE, k.at(b, h), k.row, 0, NN, n, d, 1.f, false, vec);
+        fetch_tile<DP>(s + 2 * TILE, v.at(b, h), v.row, 0, NN, n, d, 1.f, false, vec);
+        fetch_tile<DP>(s + 3 * TILE, dout.at(b, h), dout.row, 0, NN, n, d, 1.f, false, vec);
+        cp_async_commit();
+    };
+
+    int cell = blockIdx.x, cur = 0;
+    if (cell < items) fetch(cell, base);
+    for (; cell < items; cell += gridDim.x) {
+        bf16* sQ = base + cur * BUF;
+        bf16* sK = sQ + TILE;
+        bf16* sV = sK + TILE;
+        bf16* sDO = sV + TILE;
+        const int next = cell + gridDim.x;
+        const bool ahead = nbuf == 2 && next < items;
+        if (ahead) fetch(next, base + (cur ^ 1) * BUF);
+        const int b = cell / H, h = cell - b * H;
+        const float2* st_in = fst ? fst + (size_t)cell * n : nullptr;
+
+        if (ahead) cp_async_wait<1>(); else cp_async_wait<0>();
+        if (vec) scale_own_chunks<DP>(sQ, 0, NN, n, d, scale);
+        __syncthreads();
+
+        // phase A: dQ and the row statistics of 16 query rows per warp
+        for (int rg = warp; rg < steps; rg += W) {
+            const int r0 = rg * 16;
+            uint32_t aq[DP / 16][4], ado[DP / 16][4];  // the rows' qs and dO
+            load_a<DP>(aq, sQ, r0, lane);
+            load_a<DP>(ado, sDO, r0, lane);
+            float m0, m1, z0 = 0.f, z1 = 0.f;
+            const bool saved = st_in != nullptr;
+            if (saved) {  // by the forward
+                const float2 a = r0 + g < n ? st_in[r0 + g] : make_float2(0.f, 1.f);
+                const float2 c = r0 + g + 8 < n ? st_in[r0 + g + 8] : make_float2(0.f, 1.f);
+                m0 = a.x, z0 = a.y, m1 = c.x, z1 = c.y;
+            } else {
+                m0 = m1 = -INFINITY;
+                for (int kk = 0; kk < steps; ++kk) {
+                    float s[2][4];
+                    mma_abt_frag<DP, 16>(s, aq, sK + kk * 16 * LD, lane);
+                    mask_scores<16>(s, kk * 16, n, t);
+                    m0 = fmaxf(m0, fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1])));
+                    m1 = fmaxf(m1, fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3])));
+                }
+                m0 = quad_max(m0);
+                m1 = quad_max(m1);
+                if (!scores_f32) {
+                    m0 = round_to<bf16>(m0);
+                    m1 = round_to<bf16>(m1);
+                }
+            }
+            const float ml0 = m0 * LOG2E, ml1 = m1 * LOG2E;
+            // first walk: rowsum(dP e), and z where the forward saved none
+            float ra = 0.f, rb = 0.f, y0 = 0.f, y1 = 0.f;
+#pragma unroll 2
+            for (int kk = 0; kk < steps; ++kk) {
+                float s[2][4], dp[2][4];
+                mma_abt_frag<DP, 16>(s, aq, sK + kk * 16 * LD, lane);
+                mma_abt_frag<DP, 16>(dp, ado, sV + kk * 16 * LD, lane);
+                if (!scores_f32) round_scores<16>(s);
+                mask_scores<16>(s, kk * 16, n, t);
+                tile_exp2<16>(s, ml0, ml1, y0, y1);
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                    ra = fmaf(s[j][0], dp[j][0], ra);
+                    ra = fmaf(s[j][1], dp[j][1], ra);
+                    rb = fmaf(s[j][2], dp[j][2], rb);
+                    rb = fmaf(s[j][3], dp[j][3], rb);
+                }
+            }
+            if (!saved) {
+                z0 = quad_sum(y0);
+                z1 = quad_sum(y1);
+            }
+            const float rz0 = 1.f / z0, rz1 = 1.f / z1;
+            ra = quad_sum(ra) * rz0;  // rowsum(dP p)
+            rb = quad_sum(rb) * rz1;
+            // second walk: dS = T(p (dP - rowsum)) and dQ = (dS . K) scale
+            float acc[DP / 8][4];
+            zero_acc(acc);
+#pragma unroll 2
+            for (int kk = 0; kk < steps; ++kk) {
+                float s[2][4], dp[2][4];
+                mma_abt_frag<DP, 16>(s, aq, sK + kk * 16 * LD, lane);
+                mma_abt_frag<DP, 16>(dp, ado, sV + kk * 16 * LD, lane);
+                if (!scores_f32) round_scores<16>(s);
+                mask_scores<16>(s, kk * 16, n, t);
+                float u0 = 0.f, u1 = 0.f;
+                tile_exp2<16>(s, ml0, ml1, u0, u1);
+#pragma unroll
+                for (int j = 0; j < 2; ++j)
+#pragma unroll
+                    for (int c = 0; c < 4; ++c)
+                        dp[j][c] = s[j][c] * (c < 2 ? rz0 : rz1) * (dp[j][c] - (c < 2 ? ra : rb));
+                uint32_t ds[1][4];
+                pack_acc<16>(ds, dp);
+                mma_pv_ld<DP, 16>(acc, ds, sK + kk * 16 * LD, lane);  // T(dS) . K
+            }
+            scale_acc(acc, scale);
+            store_rows_pk<DP>(dq.at(b, h), dq.row, acc, r0, n, d, g, t, pk);
+            if (t == 0) {
+                // a row past n gets max = +inf: its p is exp(-inf) = 0 in phase B
+                const float3 none = make_float3(INFINITY, 1.f, 0.f);
+                sSt[r0 + g] = r0 + g < n ? make_float3(ml0, rz0, ra) : none;
+                sSt[r0 + g + 8] = r0 + g + 8 < n ? make_float3(ml1, rz1, rb) : none;
+            }
+        }
+        __syncthreads();
+
+        // phase B: dK and dV of 16 keys per warp, over the queries 16 at a time
+        for (int kg = warp; kg < steps; kg += W) {
+            const int j0 = kg * 16;
+            float gk[DP / 8][4], gv[DP / 8][4];
+            zero_acc(gk);
+            zero_acc(gv);
+            uint32_t ak[DP / 16][4], av[DP / 16][4];  // the keys' K and V rows, A of S^T, dP^T
+            load_a<DP>(ak, sK, j0, lane);
+            load_a<DP>(av, sV, j0, lane);
+#pragma unroll 2
+            for (int i0 = 0; i0 < NN; i0 += 16) {
+                // S^T and dP^T: rows are this warp's keys, columns 16 queries
+                float s[2][4], dp[2][4];
+                mma_abt_frag<DP, 16>(s, ak, sQ + i0 * LD, lane);
+                mma_abt_frag<DP, 16>(dp, av, sDO + i0 * LD, lane);
+                if (!scores_f32) round_scores<16>(s);
+#pragma unroll
+                for (int j = 0; j < 2; ++j)
+#pragma unroll
+                    for (int c = 0; c < 2; ++c) {
+                        const float3 r = sSt[i0 + j * 8 + 2 * t + c];  // of query column c
+#pragma unroll
+                        for (int hh = 0; hh < 2; ++hh) {
+                            const float p = fast_exp2(fmaf(s[j][c + 2 * hh], LOG2E, -r.x)) * r.y;
+                            s[j][c + 2 * hh] = p;
+                            dp[j][c + 2 * hh] = p * (dp[j][c + 2 * hh] - r.z);
+                        }
+                    }
+                uint32_t pa[1][4], da[1][4];
+                pack_acc<16>(pa, s);
+                pack_acc<16>(da, dp);
+                mma_pv_ld<DP, 16>(gv, pa, sDO + i0 * LD, lane);  // T(p)^T . dO
+                mma_pv_ld<DP, 16>(gk, da, sQ + i0 * LD, lane);   // T(dS)^T . qs
+            }
+            store_rows_pk<DP>(dk.at(b, h), dk.row, gk, j0, n, d, g, t, pk);
+            store_rows_pk<DP>(dv.at(b, h), dv.row, gv, j0, n, d, g, t, pk);
+        }
+        __syncthreads();  // every warp is done with this buffer and with sSt
+        if (nbuf == 1 && next < items) fetch(next, base);
+        if (nbuf == 2) cur ^= 1;
+    }
+}
+
+// ------------------------------------------------------------------ host
+
 size_t fwd_smem(int n, int d) { return sizeof(float) * ((size_t)(TQ + TK) * (d + 1) + (size_t)TQ * n + TQ); }
 size_t bwd_dq_smem(int n, int d) { return sizeof(float) * ((size_t)(2 * TQ + TK) * (d + 1) + 2 * (size_t)TQ * n); }
 size_t bwd_dkv_smem(int d) {
@@ -437,8 +790,110 @@ struct Operands {
     Slab<const T> q, k, v, dout;  // dout only in the backward
     Slab<T> out;                  // forward
     Slab<T> dq, dk, dv;           // backward
+    // forward: where (rowmax, z) go, [B, H, n] or null; backward: where they
+    // come from, or null
+    float2* fst;
+    float3* scratch;  // backward, streaming and f32 kernels: [B, H, n] between the passes
     int B, n, H, d;
 };
+
+// How a resident-path kernel is launched: buffers a block (2 where the
+// second costs no residency) and blocks resident on the card.
+struct Plan {
+    int nbuf, resident;
+};
+
+template <typename K>
+cudaError_t make_plan(K kernel, int threads, size_t buf, size_t fixed, Plan& plan) {
+    int dev = 0, sms = 0, one = 0, two = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const bool fits2 = 2 * buf + fixed <= SMEM_LIMIT;
+    // the limit itself: a plan for a shorter sequence must not lower what a
+    // longer one was allowed
+    if (err == cudaSuccess) err = allow_smem(kernel, SMEM_LIMIT);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&one, kernel, threads, buf + fixed);
+    if (err == cudaSuccess && fits2)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&two, kernel, threads,
+                                                            2 * buf + fixed);
+    if (err != cudaSuccess) return err;
+    if (one < 1) return cudaErrorLaunchOutOfResources;
+    plan.nbuf = two >= one ? 2 : 1;
+    plan.resident = sms * one;
+    return cudaSuccess;
+}
+
+bool even_slab(const Slab<bf16>& s) {
+    return reinterpret_cast<uintptr_t>(s.p) % 4 == 0 && s.img % 2 == 0 && s.row % 2 == 0 &&
+           s.head % 2 == 0;
+}
+
+template <int DP, int W>
+int fwd_res(const Operands<bf16>& a, float scale, int scores_f32, int vec, cudaStream_t stream) {
+    const int steps = ceil_div(a.n, 16);
+    const size_t buf = tile_bytes(16 * W + 32 * steps, DP);
+    static Plan plans[17] = {};  // per number of 16-key steps
+    Plan& plan = plans[steps];
+    if (plan.nbuf == 0) {
+        const cudaError_t err = make_plan(mhsa_fwd_res<DP, W>, 32 * W, buf, 0, plan);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const int chunks = ceil_div(steps, W), items = a.B * a.H * chunks;
+    const int pk = a.d % 2 == 0 && even_slab(a.out);
+    mhsa_fwd_res<DP, W><<<min(items, plan.resident), 32 * W, plan.nbuf * buf, stream>>>(
+        a.q, a.k, a.v, a.out, a.fst, a.n, a.d, a.H, scale, scores_f32, vec, pk, items, chunks,
+        plan.nbuf, steps);
+    return (int)cudaGetLastError();
+}
+
+template <int DP>
+int fwd_res_steps(const Operands<bf16>& a, float scale, int scores_f32, int vec, cudaStream_t s) {
+    const int steps = ceil_div(a.n, 16);
+    if (steps <= 4) return fwd_res<DP, FWD_W<4>>(a, scale, scores_f32, vec, s);
+    if (steps <= 7) return fwd_res<DP, FWD_W<7>>(a, scale, scores_f32, vec, s);
+    if (steps <= 9) return fwd_res<DP, FWD_W<9>>(a, scale, scores_f32, vec, s);
+    if (steps <= 13) return fwd_res<DP, FWD_W<13>>(a, scale, scores_f32, vec, s);
+    return fwd_res<DP, FWD_W<16>>(a, scale, scores_f32, vec, s);
+}
+
+template <int DP, int W, int MINB>
+int bwd_res(const Operands<bf16>& a, float scale, int scores_f32, int vec, cudaStream_t stream) {
+    const int steps = ceil_div(a.n, 16);
+    const size_t buf = tile_bytes(64 * steps, DP), fixed = sizeof(float3) * 16 * steps;
+    static Plan plans[17] = {};  // per number of 16-key steps
+    Plan& plan = plans[steps];
+    if (plan.nbuf == 0) {
+        const cudaError_t err = make_plan(mhsa_bwd_res<DP, W, MINB>, 32 * W, buf, fixed, plan);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const int items = a.B * a.H;
+    const int pk = a.d % 2 == 0 && even_slab(a.dq) && even_slab(a.dk) && even_slab(a.dv);
+    mhsa_bwd_res<DP, W, MINB>
+        <<<min(items, plan.resident), 32 * W, plan.nbuf * buf + fixed, stream>>>(
+            a.q, a.k, a.v, a.dout, a.dq, a.dk, a.dv, a.fst, a.n, a.d, a.H, scale, scores_f32,
+            vec, pk, items, plan.nbuf, steps);
+    return (int)cudaGetLastError();
+}
+
+// warps per block and blocks per SM by head_dim and sequence length: the
+// registers of a thread (about 100 at head_dim 32, 160 at 64) bound the
+// warps on a sub-core
+int bwd_res_steps(const Operands<bf16>& a, float scale, int scores_f32, int vec, cudaStream_t s) {
+    const int steps = ceil_div(a.n, 16);
+    if (a.d <= 32) {
+        if (steps <= 4) return bwd_res<32, 4, 4>(a, scale, scores_f32, vec, s);
+        if (steps <= 7) return bwd_res<32, 7, 2>(a, scale, scores_f32, vec, s);
+        if (steps <= 9) return bwd_res<32, 5, 3>(a, scale, scores_f32, vec, s);
+        if (steps <= 13) return bwd_res<32, 13, 1>(a, scale, scores_f32, vec, s);
+        return bwd_res<32, 16, 1>(a, scale, scores_f32, vec, s);
+    }
+    if (steps <= 4) return bwd_res<64, 4, 3>(a, scale, scores_f32, vec, s);
+    if (steps <= 9 && steps > 7) return bwd_res<64, 5, 2>(a, scale, scores_f32, vec, s);
+    if (steps <= 13) return bwd_res<64, 7, 1>(a, scale, scores_f32, vec, s);
+    return bwd_res<64, 8, 1>(a, scale, scores_f32, vec, s);
+}
 
 template <int DP>
 int fwd_mma(const Operands<bf16>& a, float scale, int scores_f32, int vec, cudaStream_t stream) {
@@ -446,30 +901,31 @@ int fwd_mma(const Operands<bf16>& a, float scale, int scores_f32, int vec, cudaS
     const size_t smem = fwd_cell_smem<DP>(MW);
     cudaError_t err = allow_smem(mhsa_fwd_mma<DP>, smem);
     if (err != cudaSuccess) return (int)err;
-    mhsa_fwd_mma<DP><<<grid, MT, smem, stream>>>(a.q, a.k, a.v, a.out, a.n, a.d, scale,
-                                                 scores_f32, vec);
+    mhsa_fwd_mma<DP><<<grid, MT, smem, stream>>>(a.q, a.k, a.v, a.out, a.fst, a.n, a.d, a.H,
+                                                 scale, scores_f32, vec);
     return (int)cudaGetLastError();
 }
 
 template <int DP>
-int bwd_mma(const Operands<bf16>& a, void* stats, float scale, int scores_f32, int vec,
-            cudaStream_t stream) {
-    float3* st = static_cast<float3*>(stats);
+int bwd_mma(const Operands<bf16>& a, float scale, int scores_f32, int vec, cudaStream_t stream) {
+    if (a.scratch == nullptr) return kBadShape;
     const dim3 grid(ceil_div(a.n, MQ), a.H, a.B);
 
     const size_t smem_a = dq_cell_smem<DP>(MW);
     cudaError_t err = allow_smem(mhsa_bwd_dq_mma<DP>, smem_a);
     if (err != cudaSuccess) return (int)err;
-    mhsa_bwd_dq_mma<DP><<<grid, MT, smem_a, stream>>>(a.q, a.k, a.v, a.dout, a.dq, st, a.n, a.d,
-                                                      a.H, scale, scores_f32, vec);
+    mhsa_bwd_dq_mma<DP><<<grid, MT, smem_a, stream>>>(a.q, a.k, a.v, a.dout, a.dq, a.fst,
+                                                      a.scratch, a.n, a.d, a.H, scale,
+                                                      scores_f32, vec);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 
     const size_t smem_b = dkv_cell_smem<DP>(MW);
     err = allow_smem(mhsa_bwd_dkv_mma<DP>, smem_b);
     if (err != cudaSuccess) return (int)err;
-    mhsa_bwd_dkv_mma<DP><<<grid, MT, smem_b, stream>>>(a.q, a.k, a.v, a.dout, a.dk, a.dv, st,
-                                                       a.n, a.d, a.H, scale, scores_f32, vec);
+    mhsa_bwd_dkv_mma<DP><<<grid, MT, smem_b, stream>>>(a.q, a.k, a.v, a.dout, a.dk, a.dv,
+                                                       a.scratch, a.n, a.d, a.H, scale,
+                                                       scores_f32, vec);
     return (int)cudaGetLastError();
 }
 
@@ -479,21 +935,21 @@ int fwd_scalar(const Operands<T>& a, float scale, int scores_f32, cudaStream_t s
     const size_t smem = fwd_smem(a.n, a.d);
     cudaError_t err = allow_smem(mhsa_fwd_kernel<T>, smem);
     if (err != cudaSuccess) return (int)err;
-    mhsa_fwd_kernel<T><<<grid, NT, smem, stream>>>(a.q, a.k, a.v, a.out, a.n, a.d, scale,
-                                                   scores_f32);
+    mhsa_fwd_kernel<T><<<grid, NT, smem, stream>>>(a.q, a.k, a.v, a.out, a.fst, a.n, a.d, a.H,
+                                                   scale, scores_f32);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
-int bwd_scalar(const Operands<T>& a, void* stats, float scale, int scores_f32,
-               cudaStream_t stream) {
-    float3* st = static_cast<float3*>(stats);
+int bwd_scalar(const Operands<T>& a, float scale, int scores_f32, cudaStream_t stream) {
+    if (a.scratch == nullptr) return kBadShape;
     const dim3 grid_a(ceil_div(a.n, TQ), a.H, a.B);
     const size_t smem_a = bwd_dq_smem(a.n, a.d);
     cudaError_t err = allow_smem(mhsa_bwd_dq_kernel<T>, smem_a);
     if (err != cudaSuccess) return (int)err;
-    mhsa_bwd_dq_kernel<T><<<grid_a, NT, smem_a, stream>>>(a.q, a.k, a.v, a.dout, a.dq, st, a.n,
-                                                          a.d, a.H, scale, scores_f32);
+    mhsa_bwd_dq_kernel<T><<<grid_a, NT, smem_a, stream>>>(a.q, a.k, a.v, a.dout, a.dq, a.fst,
+                                                          a.scratch, a.n, a.d, a.H, scale,
+                                                          scores_f32);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 
@@ -501,8 +957,9 @@ int bwd_scalar(const Operands<T>& a, void* stats, float scale, int scores_f32,
     const size_t smem_b = bwd_dkv_smem(a.d);
     err = allow_smem(mhsa_bwd_dkv_kernel<T>, smem_b);
     if (err != cudaSuccess) return (int)err;
-    mhsa_bwd_dkv_kernel<T><<<grid_b, NT, smem_b, stream>>>(a.q, a.k, a.v, a.dout, a.dk, a.dv, st,
-                                                           a.n, a.d, a.H, scale, scores_f32);
+    mhsa_bwd_dkv_kernel<T><<<grid_b, NT, smem_b, stream>>>(a.q, a.k, a.v, a.dout, a.dk, a.dv,
+                                                           a.scratch, a.n, a.d, a.H, scale,
+                                                           scores_f32);
     return (int)cudaGetLastError();
 }
 
@@ -515,6 +972,8 @@ int can_vec(const Operands<bf16>& a, bool backward) {
     return ok ? 1 : 0;
 }
 
+bool resident_path(int n, int d) { return n <= RES_MAX_N && d <= RES_MAX_D; }
+
 template <typename T>
 int run_fwd(const Operands<T>& a, float scale, int scores_f32, cudaStream_t s);
 
@@ -526,39 +985,46 @@ int run_fwd<float>(const Operands<float>& a, float scale, int scores_f32, cudaSt
 template <>
 int run_fwd<bf16>(const Operands<bf16>& a, float scale, int scores_f32, cudaStream_t s) {
     const int vec = can_vec(a, false);
+    if (resident_path(a.n, a.d)) {
+        if (a.d <= 32) return fwd_res_steps<32>(a, scale, scores_f32, vec, s);
+        return fwd_res_steps<64>(a, scale, scores_f32, vec, s);
+    }
     if (a.d <= 32) return fwd_mma<32>(a, scale, scores_f32, vec, s);
     if (a.d <= 64) return fwd_mma<64>(a, scale, scores_f32, vec, s);
     return fwd_mma<128>(a, scale, scores_f32, vec, s);
 }
 
 template <typename T>
-int run_bwd(const Operands<T>& a, void* stats, float scale, int scores_f32, cudaStream_t s);
+int run_bwd(const Operands<T>& a, float scale, int scores_f32, cudaStream_t s);
 
 template <>
-int run_bwd<float>(const Operands<float>& a, void* stats, float scale, int scores_f32,
-                   cudaStream_t s) {
-    return bwd_scalar<float>(a, stats, scale, scores_f32, s);
+int run_bwd<float>(const Operands<float>& a, float scale, int scores_f32, cudaStream_t s) {
+    return bwd_scalar<float>(a, scale, scores_f32, s);
 }
 
 template <>
-int run_bwd<bf16>(const Operands<bf16>& a, void* stats, float scale, int scores_f32,
-                  cudaStream_t s) {
+int run_bwd<bf16>(const Operands<bf16>& a, float scale, int scores_f32, cudaStream_t s) {
     const int vec = can_vec(a, true);
-    if (a.d <= 32) return bwd_mma<32>(a, stats, scale, scores_f32, vec, s);
-    if (a.d <= 64) return bwd_mma<64>(a, stats, scale, scores_f32, vec, s);
-    return bwd_mma<128>(a, stats, scale, scores_f32, vec, s);
+    if (resident_path(a.n, a.d)) {
+        return bwd_res_steps(a, scale, scores_f32, vec, s);
+    }
+    if (a.d <= 32) return bwd_mma<32>(a, scale, scores_f32, vec, s);
+    if (a.d <= 64) return bwd_mma<64>(a, scale, scores_f32, vec, s);
+    return bwd_mma<128>(a, scale, scores_f32, vec, s);
 }
 
 // K1: the operands of a raw qkv projection, its output and its gradient
 template <typename T>
-Operands<T> qkv_operands(const void* qkv, const void* dout, void* out, void* dqkv, int B, int n,
-                         int C, int H) {
+Operands<T> qkv_operands(const void* qkv, const void* dout, void* out, void* dqkv, void* fst,
+                         void* scratch, int B, int n, int C, int H) {
     Operands<T> a{};
     const int d = C / H;
     qkv_slabs<const T>(qkv, n, C, d, a.q, a.k, a.v);
     a.dout = slab<const T>(dout, (long long)n * C, C, d);
     a.out = slab<T>(out, (long long)n * C, C, d);
     qkv_slabs<T>(dqkv, n, C, d, a.dq, a.dk, a.dv);
+    a.fst = static_cast<float2*>(fst);
+    a.scratch = static_cast<float3*>(scratch);
     a.B = B, a.n = n, a.H = H, a.d = d;
     return a;
 }
@@ -566,9 +1032,9 @@ Operands<T> qkv_operands(const void* qkv, const void* dout, void* out, void* dqk
 // K5: strided q, k, v (and dout); contiguous [B, n, H, d] results
 template <typename T>
 Operands<T> split_operands(const void* q, const void* k, const void* v, const void* dout,
-                           void* out, void* dq, void* dk, void* dv, const long long* sq,
-                           const long long* sk, const long long* sv, const long long* sg, int B,
-                           int n, int H, int d) {
+                           void* out, void* dq, void* dk, void* dv, void* fst, void* scratch,
+                           const long long* sq, const long long* sk, const long long* sv,
+                           const long long* sg, int B, int n, int H, int d) {
     Operands<T> a{};
     const long long row = (long long)H * d, img = n * row;
     a.q = slab<const T>(q, sq[0], sq[1], sq[2]);
@@ -579,6 +1045,8 @@ Operands<T> split_operands(const void* q, const void* k, const void* v, const vo
     a.dq = slab<T>(dq, img, row, d);
     a.dk = slab<T>(dk, img, row, d);
     a.dv = slab<T>(dv, img, row, d);
+    a.fst = static_cast<float2*>(fst);
+    a.scratch = static_cast<float3*>(scratch);
     a.B = B, a.n = n, a.H = H, a.d = d;
     return a;
 }
@@ -590,37 +1058,49 @@ extern "C" {
 // Every entry point returns 0 on success, a cudaError_t value, or -1 for a
 // shape the kernels do not take. `stream` is a cudaStream_t. dtype: 0 =
 // float32, 1 = bfloat16.
+//
+// `stats` is [B, H, n, 2] f32, (rowmax, z) per query row. A forward writes
+// it unless it is null (no backward will follow). A backward reads it, and
+// computes the two itself when it is null. `scratch` is f32 of B * H * n * 3
+// elements that the two-kernel backwards (f32, and bf16 outside the resident
+// path: mhsa_uses_scratch) pass the row statistics through; else it may be
+// null.
+
+// 1 when a backward of this type and shape needs `scratch`
+int mhsa_uses_scratch(int n, int d, int dtype) { return dtype == 0 || !resident_path(n, d); }
 
 // K1 forward: qkv [B, n, 3C] -> out [B, n, C].
-int mhsa_qkv_fwd(const void* qkv, void* out, int B, int n, int C, int H, float scale,
+int mhsa_qkv_fwd(const void* qkv, void* out, void* stats, int B, int n, int C, int H, float scale,
                  int scores_f32, int dtype, void* stream) {
     if (H < 1 || C % H != 0 || bad_shape(B, n, H, C / H) || (dtype != 0 && dtype != 1))
         return kBadShape;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
-        return run_fwd(qkv_operands<float>(qkv, nullptr, out, nullptr, B, n, C, H), scale,
-                       scores_f32, s);
-    return run_fwd(qkv_operands<bf16>(qkv, nullptr, out, nullptr, B, n, C, H), scale, scores_f32,
-                   s);
+        return run_fwd(qkv_operands<float>(qkv, nullptr, out, nullptr, stats, nullptr, B, n, C, H),
+                       scale, scores_f32, s);
+    return run_fwd(qkv_operands<bf16>(qkv, nullptr, out, nullptr, stats, nullptr, B, n, C, H),
+                   scale, scores_f32, s);
 }
 
-// K1 backward: `stats` is f32 scratch of B * H * n * 3 elements.
-int mhsa_qkv_bwd(const void* qkv, const void* dout, void* dqkv, void* stats, int B, int n, int C,
-                 int H, float scale, int scores_f32, int dtype, void* stream) {
+// K1 backward: qkv, dout [B, n, C] -> dqkv [B, n, 3C].
+int mhsa_qkv_bwd(const void* qkv, const void* dout, void* dqkv, const void* stats, void* scratch,
+                 int B, int n, int C, int H, float scale, int scores_f32, int dtype,
+                 void* stream) {
     if (H < 1 || C % H != 0 || bad_shape(B, n, H, C / H) || (dtype != 0 && dtype != 1))
         return kBadShape;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    void* st = const_cast<void*>(stats);
     if (dtype == 0)
-        return run_bwd(qkv_operands<float>(qkv, dout, nullptr, dqkv, B, n, C, H), stats, scale,
-                       scores_f32, s);
-    return run_bwd(qkv_operands<bf16>(qkv, dout, nullptr, dqkv, B, n, C, H), stats, scale,
+        return run_bwd(qkv_operands<float>(qkv, dout, nullptr, dqkv, st, scratch, B, n, C, H),
+                       scale, scores_f32, s);
+    return run_bwd(qkv_operands<bf16>(qkv, dout, nullptr, dqkv, st, scratch, B, n, C, H), scale,
                    scores_f32, s);
 }
 
 // K5 forward: q, k, v of shape [B, n, H, d] with the element strides
 // (image, row, head) given for each, lanes contiguous; out is contiguous
 // [B, n, H, d]. Scores stay f32.
-int mhsa_fwd(const void* q, const void* k, const void* v, void* out, long long q_img,
+int mhsa_fwd(const void* q, const void* k, const void* v, void* out, void* stats, long long q_img,
              long long q_row, long long q_head, long long k_img, long long k_row,
              long long k_head, long long v_img, long long v_row, long long v_head, int B, int n,
              int H, int d, float scale, int dtype, void* stream) {
@@ -629,29 +1109,33 @@ int mhsa_fwd(const void* q, const void* k, const void* v, void* out, long long q
                     sv[3] = {v_img, v_row, v_head};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
-        return run_fwd(split_operands<float>(q, k, v, nullptr, out, nullptr, nullptr, nullptr, sq,
-                                             sk, sv, nullptr, B, n, H, d), scale, 1, s);
-    return run_fwd(split_operands<bf16>(q, k, v, nullptr, out, nullptr, nullptr, nullptr, sq, sk,
-                                        sv, nullptr, B, n, H, d), scale, 1, s);
+        return run_fwd(split_operands<float>(q, k, v, nullptr, out, nullptr, nullptr, nullptr,
+                                             stats, nullptr, sq, sk, sv, nullptr, B, n, H, d),
+                       scale, 1, s);
+    return run_fwd(split_operands<bf16>(q, k, v, nullptr, out, nullptr, nullptr, nullptr, stats,
+                                        nullptr, sq, sk, sv, nullptr, B, n, H, d),
+                   scale, 1, s);
 }
 
-// K5 backward: strided q, k, v and dout; contiguous dq, dk, dv [B, n, H, d];
-// `stats` is f32 scratch of B * H * n * 3 elements.
+// K5 backward: strided q, k, v and dout; contiguous dq, dk, dv [B, n, H, d].
 int mhsa_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
-             void* dv, void* stats, long long q_img, long long q_row, long long q_head,
-             long long k_img, long long k_row, long long k_head, long long v_img,
-             long long v_row, long long v_head, long long g_img, long long g_row,
-             long long g_head, int B, int n, int H, int d, float scale, int dtype,
-             void* stream) {
+             void* dv, const void* stats, void* scratch, long long q_img, long long q_row,
+             long long q_head, long long k_img, long long k_row, long long k_head,
+             long long v_img, long long v_row, long long v_head, long long g_img,
+             long long g_row, long long g_head, int B, int n, int H, int d, float scale,
+             int dtype, void* stream) {
     if (bad_shape(B, n, H, d) || (dtype != 0 && dtype != 1)) return kBadShape;
     const long long sq[3] = {q_img, q_row, q_head}, sk[3] = {k_img, k_row, k_head},
                     sv[3] = {v_img, v_row, v_head}, sg[3] = {g_img, g_row, g_head};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    void* st = const_cast<void*>(stats);
     if (dtype == 0)
-        return run_bwd(split_operands<float>(q, k, v, dout, nullptr, dq, dk, dv, sq, sk, sv, sg,
-                                             B, n, H, d), stats, scale, 1, s);
-    return run_bwd(split_operands<bf16>(q, k, v, dout, nullptr, dq, dk, dv, sq, sk, sv, sg, B, n,
-                                        H, d), stats, scale, 1, s);
+        return run_bwd(split_operands<float>(q, k, v, dout, nullptr, dq, dk, dv, st, scratch, sq,
+                                             sk, sv, sg, B, n, H, d),
+                       scale, 1, s);
+    return run_bwd(split_operands<bf16>(q, k, v, dout, nullptr, dq, dk, dv, st, scratch, sq, sk,
+                                        sv, sg, B, n, H, d),
+                   scale, 1, s);
 }
 
 }  // extern "C"

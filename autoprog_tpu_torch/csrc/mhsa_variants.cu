@@ -8,13 +8,17 @@
 //                             _bwd_phase_kernel (make_variant)
 //                                          -> mhsa_group_fwd, mhsa_group_bwd
 // None of them changes the arithmetic of K1 (mhsa_qkv.cu, rounding points in
-// mhsa_common.cuh); each is another answer to a question of schedule, and
-// each result equals K1's bit for bit at the same score type.
+// mhsa_common.cuh); each is another answer to a question of schedule. All
+// are built from the streaming cells of mhsa_common.cuh, which were K1's
+// first schedule and still are its path above n = 256: `loop` with G = 1 is
+// that schedule exactly, and every variant with f32 scores equals it bit for
+// bit. K1's resident path, which was designed from what these variants
+// measured, spends other f32 operations per score (ex2, a multiplication by
+// 1 / z) and agrees with them to 2 ulp of the working type.
 //
-// What bounds K1 at the VOLO shape is the n x n score matrix and its row
-// softmax, not HBM (see mhsa_qkv.cu), and K1 pays for keeping no score row by
-// recomputing the scores in every pass. The variants put the card's own
-// answer beside that:
+// The streaming schedule keeps no score row and pays for that by recomputing
+// the scores in every pass. The variants put the card's own answer beside
+// that:
 //
 //   twophase, twophase_bf16s   park or recompute? The block computes its
 //       whole score rows [64, n] once, parks them in shared memory (f32, or
@@ -162,32 +166,7 @@ fwd_twophase(Slab<const bf16> q, Slab<const bf16> k, Slab<const bf16> v, Slab<bf
 
 // ------------------------------------------------------------- pipelined
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// load_tile by asynchronous 16-byte copies; rows past n and lanes past d are
-// zeroed by plain stores. Needs d % 8 == 0 and an aligned slab.
-template <int DP>
-__device__ void async_tile(bf16* dst, const bf16* __restrict__ src, long long stride, int r0,
-                           int rows, int n, int d) {
-    constexpr int LD = DP + PAD, CH = DP / 8;
-    for (int idx = threadIdx.x; idx < rows * CH; idx += blockDim.x) {
-        const int r = idx / CH, c = (idx - r * CH) * 8;
-        bf16* to = dst + r * LD + c;
-        if (r0 + r < n && c < d) cp_async16(to, src + (long long)(r0 + r) * stride + c);
-        else *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
-    }
-}
+// cp.async helpers and async_tile: mhsa_common.cuh
 
 template <int DP>
 __global__ void __launch_bounds__(MT)

@@ -2,9 +2,14 @@
 CUDA kernels and plain twins.
 
 Counterpart of `autoprog_tpu/ops/attention_pallas.py` (`mhsa_fused_qkv`,
-`mhsa_fused`). The kernels are `csrc/mhsa_qkv.cu` (forward, and a two-pass
-backward that recomputes the probabilities); their source note says what
-bounds them and how the design answers it.
+`mhsa_fused`). The kernels are `csrc/mhsa_qkv.cu`; their source note says
+what bounds them and how the design answers it. Which kernels run is decided
+by type and shape alone: bf16 with n <= 256 and head_dim <= 64 takes the
+resident path (K and V of an (image, head) held in shared memory, loaded by
+cp.async; a warp walks them for its 16 query rows; the backward is one
+kernel per cell); bf16 above that (n up to 1024, head_dim up to 128) streams
+K and V in tiles, and f32 runs scalar kernels, both with a backward of two
+kernels.
 
 `mhsa_fused_qkv(qkv, num_heads, scale)` takes qkv [B, n, 3C] in the channel
 order (3, heads, d) of the qkv Dense and returns [B, n, C]. On a CUDA tensor
@@ -21,6 +26,12 @@ The backward recomputes p = softmax(f32(S)) at the forward's score dtype:
 dV = dt(p)^T . dO, dP = dO . v^T, dS = dt(p * (dP - rowsum(dP * p))),
 dQ = (dS . k) * scale, dK = dS^T . qs, written into one [B, n, 3C] grad.
 
+When a backward will follow, the forward also returns the row statistics
+`stats` [B, heads, n, 2] f32, (rowmax(S), z) per query row; the autograd
+Functions save them and the backward takes p = exp(S - rowmax) / z from
+them instead of reducing the rows again (the same bits: both are the
+forward's own values). A backward without statistics computes them itself.
+
 `mhsa_fused(q, k, v, scale)` is the same function on separate q, k, v of
 shape [B, n, heads, d] with the scores always f32, returning
 [B, n, heads, d]. The kernel reads each operand in place by its strides (a
@@ -29,11 +40,13 @@ buffer); only the last axis must be contiguous, and nothing is copied or
 transposed on the way in. Its gradients are three contiguous tensors.
 
 `LAUNCHES` counts kernel launches by the wrappers ("fwd", "bwd" for K1,
-"fused_fwd", "fused_bwd" for K5); the twins do not count.
+"fused_fwd", "fused_bwd" for K5), `SHAPE_LAUNCHES` K1's per (side, tokens,
+head_dim); the twins do not count.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 
 import torch
@@ -41,6 +54,8 @@ import torch
 #: kernel launches made by MhsaFusedQkv and MhsaFused (plain twins are not
 #: counted)
 LAUNCHES = {"fwd": 0, "bwd": 0, "fused_fwd": 0, "fused_bwd": 0}
+#: the same launches of K1 per ("fwd" or "bwd", tokens, head_dim)
+SHAPE_LAUNCHES: "collections.Counter[tuple]" = collections.Counter()
 
 #: the router's limits (`autoprog_tpu/models/layers.py:_use_fused_attn`)
 MAX_TOKENS = 1024
@@ -66,41 +81,71 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 1, 3).reshape(B, n, h * d)
 
 
-def _probs(qs, k, sdt):
-    s = torch.matmul(qs.float(), k.float().transpose(-1, -2)).to(sdt).float()
-    return s - s.amax(-1, keepdim=True)
+def _scores(qs, k, sdt):
+    """S = qs . k^T accumulated in f32 and rounded to the score dtype."""
+    return torch.matmul(qs.float(), k.float().transpose(-1, -2)).to(sdt).float()
 
 
-def mhsa_fused_qkv_reference(qkv: torch.Tensor, num_heads: int, scale: float,
-                             scores_f32: bool = False) -> torch.Tensor:
-    """Plain PyTorch forward of K1 with the kernel's rounding points."""
-    dt = qkv.dtype
-    q, k, v = _split_heads(qkv, num_heads)
-    qs = (q.float() * scale).to(dt)
-    e = torch.exp(_probs(qs, k, torch.float32 if scores_f32 else dt))
+def _exp_and_stats(s):
+    """e = exp(S - rowmax), and (rowmax, z) stacked as [..., n, 2]."""
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
     z = e.sum(-1, keepdim=True)
-    o = torch.matmul(e.to(dt).float(), v.float()) / z
-    return _merge_heads(o.to(dt))
+    return e, z, torch.cat([m, z], -1)
 
 
-def mhsa_fused_qkv_backward_reference(qkv: torch.Tensor, dout: torch.Tensor,
-                                      num_heads: int, scale: float,
-                                      scores_f32: bool = False) -> torch.Tensor:
-    """Plain PyTorch backward of K1 (the kernel's formula, not autograd)."""
-    dt = qkv.dtype
-    q, k, v = _split_heads(qkv, num_heads)
-    B, n, C = dout.shape
-    do = dout.view(B, n, num_heads, C // num_heads).permute(0, 2, 1, 3).float()
-    qs = (q.float() * scale).to(dt)
-    e = torch.exp(_probs(qs, k, torch.float32 if scores_f32 else dt))
-    p = e / e.sum(-1, keepdim=True)
+def _probs_from_stats(s, stats):
+    """p = exp(S - rowmax) / z from saved (rowmax, z), or from the rows."""
+    if stats is None:
+        e, z, _ = _exp_and_stats(s)
+    else:
+        e, z = torch.exp(s - stats[..., :1]), stats[..., 1:]
+    return e / z
+
+
+def _attend(qs, k, v, sdt, dt):
+    """O = (dt(e) . v) / z as [B, heads, n, d] in dt, and the statistics."""
+    e, z, stats = _exp_and_stats(_scores(qs, k, sdt))
+    return (torch.matmul(e.to(dt).float(), v.float()) / z).to(dt), stats
+
+
+def _attend_backward(qs, k, v, do, sdt, dt, scale, stats):
+    """dq, dk, dv as f32 [B, heads, n, d] (the kernel's formula, not autograd)."""
+    p = _probs_from_stats(_scores(qs, k, sdt), stats)
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), do)
     dp = torch.matmul(do, v.float().transpose(-1, -2))
     ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(dt).float()
     dq = torch.matmul(ds, k.float()) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qs.float())
-    grads = torch.stack([dq, dk, dv])                     # [3, B, h, n, d]
-    return grads.permute(1, 3, 0, 2, 4).reshape(B, n, 3 * C).to(dt)
+    return dq, dk, dv
+
+
+def mhsa_fused_qkv_reference(qkv: torch.Tensor, num_heads: int, scale: float,
+                             scores_f32: bool = False, return_stats: bool = False):
+    """Plain PyTorch forward of K1 with the kernel's rounding points; with
+    `return_stats` also the row statistics [B, heads, n, 2]."""
+    dt = qkv.dtype
+    q, k, v = _split_heads(qkv, num_heads)
+    qs = (q.float() * scale).to(dt)
+    o, stats = _attend(qs, k, v, torch.float32 if scores_f32 else dt, dt)
+    out = _merge_heads(o)
+    return (out, stats) if return_stats else out
+
+
+def mhsa_fused_qkv_backward_reference(qkv: torch.Tensor, dout: torch.Tensor,
+                                      num_heads: int, scale: float,
+                                      scores_f32: bool = False,
+                                      stats: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch backward of K1 (the kernel's formula, not autograd);
+    `stats` are the forward's row statistics, if it kept them."""
+    dt = qkv.dtype
+    q, k, v = _split_heads(qkv, num_heads)
+    B, n, C = dout.shape
+    do = dout.view(B, n, num_heads, C // num_heads).permute(0, 2, 1, 3).float()
+    qs = (q.float() * scale).to(dt)
+    grads = torch.stack(_attend_backward(
+        qs, k, v, do, torch.float32 if scores_f32 else dt, dt, scale, stats))
+    return grads.permute(1, 3, 0, 2, 4).reshape(B, n, 3 * C).to(dt)  # from [3, B, h, n, d]
 
 
 def _check_cuda(qkv: torch.Tensor, num_heads: int) -> None:
@@ -123,22 +168,46 @@ def _check_cuda(qkv: torch.Tensor, num_heads: int) -> None:
             f"{MAX_HEAD_DIM}, B <= 65535)")
 
 
-def _launch_fwd(qkv, num_heads, scale, scores_f32):
+def _check_stats(what: str, stats, like: torch.Tensor, B: int, heads: int, n: int):
+    if stats is None:
+        return None
+    if (stats.dtype != torch.float32 or stats.device != like.device
+            or tuple(stats.shape) != (B, heads, n, 2) or not stats.is_contiguous()):
+        raise ValueError(f"{what}: stats must be contiguous float32 "
+                         f"{(B, heads, n, 2)} on {like.device}, got "
+                         f"{tuple(stats.shape)} {stats.dtype} on {stats.device}")
+    return stats.data_ptr()
+
+
+def _scratch(lib, like: torch.Tensor, B: int, heads: int, n: int, d: int):
+    """What the two-kernel backwards pass their row statistics through; the
+    resident path needs none."""
+    if not lib.mhsa_uses_scratch(n, d, _DTYPE_CODE[like.dtype]):
+        return None
+    return torch.empty(B * heads * n * 3, dtype=torch.float32, device=like.device)
+
+
+def _launch_fwd(qkv, num_heads, scale, scores_f32, want_stats: bool = False):
+    """K1's forward kernel: out, or (out, stats) with `want_stats`."""
     from autoprog_tpu_torch import _build
     _check_cuda(qkv, num_heads)
     B, n, C3 = qkv.shape
     out = torch.empty(B, n, C3 // 3, dtype=qkv.dtype, device=qkv.device)
+    stats = torch.empty(B, num_heads, n, 2, dtype=torch.float32,
+                        device=qkv.device) if want_stats else None
     with torch.cuda.device(qkv.device):
         rc = _build.load().mhsa_qkv_fwd(
-            qkv.data_ptr(), out.data_ptr(), B, n, C3 // 3, num_heads,
-            float(scale), int(scores_f32), _DTYPE_CODE[qkv.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            qkv.data_ptr(), out.data_ptr(), None if stats is None else stats.data_ptr(),
+            B, n, C3 // 3, num_heads, float(scale), int(scores_f32),
+            _DTYPE_CODE[qkv.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mhsa_qkv_fwd")
     LAUNCHES["fwd"] += 1
-    return out
+    SHAPE_LAUNCHES["fwd", n, C3 // 3 // num_heads] += 1
+    return (out, stats) if want_stats else out
 
 
-def _launch_bwd(qkv, dout, num_heads, scale, scores_f32):
+def _launch_bwd(qkv, dout, num_heads, scale, scores_f32, stats=None):
+    """K1's backward kernels; `stats` as the forward returned them, or None."""
     from autoprog_tpu_torch import _build
     _check_cuda(qkv, num_heads)
     B, n, C3 = qkv.shape
@@ -148,16 +217,19 @@ def _launch_bwd(qkv, dout, num_heads, scale, scores_f32):
         raise ValueError(f"mhsa_fused_qkv backward: dout {tuple(dout.shape)} "
                          f"{dout.dtype} on {dout.device} does not match qkv "
                          f"{tuple(qkv.shape)} {qkv.dtype} on {qkv.device}")
+    stats_ptr = _check_stats("mhsa_fused_qkv backward", stats, qkv, B, num_heads, n)
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty(B * num_heads * n * 3, dtype=torch.float32,
-                        device=qkv.device)
     with torch.cuda.device(qkv.device):
-        rc = _build.load().mhsa_qkv_bwd(
-            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+        lib = _build.load()
+        scratch = _scratch(lib, qkv, B, num_heads, n, C3 // 3 // num_heads)
+        rc = lib.mhsa_qkv_bwd(
+            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats_ptr,
+            None if scratch is None else scratch.data_ptr(),
             B, n, C3 // 3, num_heads, float(scale), int(scores_f32),
             _DTYPE_CODE[qkv.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mhsa_qkv_bwd")
     LAUNCHES["bwd"] += 1
+    SHAPE_LAUNCHES["bwd", n, C3 // 3 // num_heads] += 1
     return dqkv
 
 
@@ -168,25 +240,30 @@ def _on(t: torch.Tensor) -> str:
 
 
 class MhsaFusedQkv(torch.autograd.Function):
-    """K1 with its hand-written backward (the Pallas op's custom_vjp)."""
+    """K1 with its hand-written backward (the Pallas op's custom_vjp). The
+    forward keeps the row statistics for the backward when one will follow."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads: int, scale: float, scores_f32: bool):
-        ctx.save_for_backward(qkv)
         ctx.cfg = (num_heads, scale, scores_f32)
+        want = ctx.needs_input_grad[0]
         if _on(qkv) == "cpu":
-            return mhsa_fused_qkv_reference(qkv, num_heads, scale, scores_f32)
-        return _launch_fwd(qkv, num_heads, scale, scores_f32)
+            res = mhsa_fused_qkv_reference(qkv, num_heads, scale, scores_f32, want)
+        else:
+            res = _launch_fwd(qkv, num_heads, scale, scores_f32, want)
+        out, stats = res if want else (res, None)
+        ctx.save_for_backward(qkv, stats)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        (qkv,) = ctx.saved_tensors
+        qkv, stats = ctx.saved_tensors
         num_heads, scale, scores_f32 = ctx.cfg
         if _on(qkv) == "cpu":
             dqkv = mhsa_fused_qkv_backward_reference(qkv, dout, num_heads,
-                                                     scale, scores_f32)
+                                                     scale, scores_f32, stats)
         else:
-            dqkv = _launch_bwd(qkv, dout, num_heads, scale, scores_f32)
+            dqkv = _launch_bwd(qkv, dout, num_heads, scale, scores_f32, stats)
         return dqkv, None, None, None
 
 
@@ -208,33 +285,29 @@ def _heads_first(x: torch.Tensor) -> torch.Tensor:
 
 
 def mhsa_fused_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         scale: float) -> torch.Tensor:
-    """Plain PyTorch forward of K5 with the kernel's rounding points."""
+                         scale: float, return_stats: bool = False):
+    """Plain PyTorch forward of K5 with the kernel's rounding points; with
+    `return_stats` also the row statistics [B, heads, n, 2]."""
     dt = q.dtype
     q, k, v = _heads_first(q), _heads_first(k), _heads_first(v)
     qs = (q.float() * scale).to(dt)
-    e = torch.exp(_probs(qs, k, torch.float32))
-    z = e.sum(-1, keepdim=True)
-    o = torch.matmul(e.to(dt).float(), v.float()) / z
-    return o.to(dt).permute(0, 2, 1, 3).contiguous()
+    o, stats = _attend(qs, k, v, torch.float32, dt)
+    out = o.permute(0, 2, 1, 3).contiguous()
+    return (out, stats) if return_stats else out
 
 
 def mhsa_fused_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                  dout: torch.Tensor, scale: float):
+                                  dout: torch.Tensor, scale: float,
+                                  stats: torch.Tensor | None = None):
     """Plain PyTorch backward of K5 (the kernel's formula, not autograd):
-    dq, dk, dv as [B, n, heads, d]."""
+    dq, dk, dv as [B, n, heads, d]; `stats` are the forward's row
+    statistics, if it kept them."""
     dt = q.dtype
     q, k, v = _heads_first(q), _heads_first(k), _heads_first(v)
-    do = _heads_first(dout).float()
     qs = (q.float() * scale).to(dt)
-    e = torch.exp(_probs(qs, k, torch.float32))
-    p = e / e.sum(-1, keepdim=True)
-    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), do)
-    dp = torch.matmul(do, v.float().transpose(-1, -2))
-    ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(dt).float()
-    dq = torch.matmul(ds, k.float()) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qs.float())
-    return tuple(g.to(dt).permute(0, 2, 1, 3).contiguous() for g in (dq, dk, dv))
+    grads = _attend_backward(qs, k, v, _heads_first(dout).float(), torch.float32, dt,
+                             scale, stats)
+    return tuple(g.to(dt).permute(0, 2, 1, 3).contiguous() for g in grads)
 
 
 def _check_split(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
@@ -270,32 +343,40 @@ def _strides(t: torch.Tensor):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def _launch_fused_fwd(q, k, v, scale):
+def _launch_fused_fwd(q, k, v, scale, want_stats: bool = False):
+    """K5's forward kernel: out, or (out, stats) with `want_stats`."""
     from autoprog_tpu_torch import _build
     _check_split_cuda(q, ("k", k), ("v", v))
     B, n, H, d = q.shape
     out = torch.empty(B, n, H, d, dtype=q.dtype, device=q.device)
+    stats = torch.empty(B, H, n, 2, dtype=torch.float32,
+                        device=q.device) if want_stats else None
     with torch.cuda.device(q.device):
         rc = _build.load().mhsa_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if stats is None else stats.data_ptr(),
             *_strides(q), *_strides(k), *_strides(v), B, n, H, d, float(scale),
             _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mhsa_fwd")
     LAUNCHES["fused_fwd"] += 1
-    return out
+    return (out, stats) if want_stats else out
 
 
-def _launch_fused_bwd(q, k, v, dout, scale):
+def _launch_fused_bwd(q, k, v, dout, scale, stats=None):
+    """K5's backward kernels; `stats` as the forward returned them, or None."""
     from autoprog_tpu_torch import _build
     _check_split_cuda(q, ("k", k), ("v", v), ("dout", dout))
     B, n, H, d = q.shape
+    stats_ptr = _check_stats("mhsa_fused backward", stats, q, B, H, n)
     dq, dk, dv = (torch.empty(B, n, H, d, dtype=q.dtype, device=q.device)
                   for _ in range(3))
-    stats = torch.empty(B * H * n * 3, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        rc = _build.load().mhsa_bwd(
+        lib = _build.load()
+        scratch = _scratch(lib, q, B, H, n, d)
+        rc = lib.mhsa_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats_ptr,
+            None if scratch is None else scratch.data_ptr(),
             *_strides(q), *_strides(k), *_strides(v), *_strides(dout), B, n, H, d,
             float(scale), _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream().cuda_stream)
@@ -305,27 +386,32 @@ def _launch_fused_bwd(q, k, v, dout, scale):
 
 
 class MhsaFused(torch.autograd.Function):
-    """K5 with its hand-written backward (the Pallas op's custom_vjp)."""
+    """K5 with its hand-written backward (the Pallas op's custom_vjp). The
+    forward keeps the row statistics for the backward when one will follow."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float):
-        ctx.save_for_backward(q, k, v)
         ctx.scale = scale
+        want = any(ctx.needs_input_grad[:3])
         if _on(q) == "cpu":
-            return mhsa_fused_reference(q, k, v, scale)
-        return _launch_fused_fwd(q, k, v, scale)
+            res = mhsa_fused_reference(q, k, v, scale, want)
+        else:
+            res = _launch_fused_fwd(q, k, v, scale, want)
+        out, stats = res if want else (res, None)
+        ctx.save_for_backward(q, k, v, stats)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
+        q, k, v, stats = ctx.saved_tensors
         if _on(q) == "cpu":
-            dq, dk, dv = mhsa_fused_backward_reference(q, k, v, dout, ctx.scale)
+            dq, dk, dv = mhsa_fused_backward_reference(q, k, v, dout, ctx.scale, stats)
         else:
             if dout.stride(3) != 1:
                 # autograd may hand over any layout; the kernel needs lanes
                 # contiguous (a gradient, not one of the timed operands)
                 dout = dout.contiguous()
-            dq, dk, dv = _launch_fused_bwd(q, k, v, dout, ctx.scale)
+            dq, dk, dv = _launch_fused_bwd(q, k, v, dout, ctx.scale, stats)
         return dq, dk, dv, None
 
 

@@ -1,11 +1,13 @@
 """Schedule variants of K1's forward, counterpart of the JAX package's
 `scripts/attn_variants.py` (`mhsa_fwd_variant`, `mhsa_variant_with_shared_bwd`).
 
-K1's forward (`csrc/mhsa_qkv.cu`) keeps no score row: it computes the scores
-of a tile twice, once for the row maxima and once for the softmax and the
-product with V. The variants put the alternatives beside it, in
-`csrc/mhsa_variants.cu` (bf16 only, same contract as `mhsa_fused_qkv`:
-qkv [B, n, 3C] -> [B, n, C]):
+K1's first forward (the streaming cells of `csrc/mhsa_common.cuh`, still its
+path above n = 256; `loop_img1` of `bench_attn_x`) keeps no score row: it
+computes the scores of a tile twice, once for the row maxima and once for the
+softmax and the product with V. The variants put the alternatives beside it,
+in `csrc/mhsa_variants.cu` (bf16 only, same contract as `mhsa_fused_qkv`:
+qkv [B, n, 3C] -> [B, n, C]); what they measured is what K1's resident path
+was then built from:
 
   * twophase        every score of the block's rows is computed once and
                     parked in shared memory at f32; softmax and T(e) . V read
@@ -17,7 +19,8 @@ qkv [B, n, 3C] -> [B, n, C]):
                     on the current one; f32 scores.
 
 None changes the math, so the plain twin of a variant is K1's twin at the
-variant's score type, and on the card a variant equals K1 at that score type.
+variant's score type. On the card a variant with f32 scores equals the first
+K1 schedule (`loop_img1`) bit for bit and K1 to 2 ulp of bf16.
 A shape whose parked rows do not fit a block's shared memory (n = 1024 at
 f32) and, for `pipelined`, a head_dim that is not a multiple of 8 are refused
 with ValueError. `LAUNCHES` counts kernel launches per variant.

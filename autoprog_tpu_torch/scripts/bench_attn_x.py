@@ -7,7 +7,9 @@ The variants ask how much independent work a block should carry, without
 changing the math: `G` images per block (grid z is B / G; the block walks
 its G images for its (tile, head)), in two orders:
 
-  loop   one image after the other, K1's body each time;
+  loop   one image after the other, the streaming body each time (one 64-row
+         tile, K and V in tiles of 64 keys: K1's first schedule, which
+         `loop` with G = 1 is exactly);
   phase  the QK^T of all G cells into shared memory, then all softmaxes,
          then all T(e) . V; the backward in the same manner.
 
@@ -22,7 +24,9 @@ The table: K1 at its default score type and at f32 scores, then
 `phase_img{1,2,4}` and `loop_img{2,4}`, forward and forward + backward
 (CUDA events after a warm-up), and each variant's largest difference from K1
 at f32 scores (the JAX script checks against `mhsa_fused_qkv` at its default,
-bf16 scores, which variants with f32 scores cannot equal). Without a CUDA
+bf16 scores, which variants with f32 scores cannot equal; on the card K1's
+resident path differs from the variants within 2 ulp of bf16, on the CPU the
+twins are equal). Without a CUDA
 device the script raises unless AUTOPROG_TORCH_DEVICE=cpu, where it runs the
 plain twins at B = 4.
 """

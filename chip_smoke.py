@@ -7,16 +7,24 @@ Phases (each prints its lines; any failure exits non-zero; nothing falls
 back to the CPU or to a plain twin):
   1. device: name, nvidia-smi name and power limit, TF32 flags (set off);
   2. build: nvcc builds the CUDA kernels from csrc/ (build/kernels/), one
-     compiler process per source, all at once;
+     compiler process per source, all at once; prints the registers and the
+     spill bytes `ptxas -v` reports for every K1 / K5 kernel and fails if one
+     of the resident-path kernels (`mhsa_fwd_res`, `mhsa_bwd_res`) spills;
   3. kernel vs plain, on the card, bf16 and f32, tolerance 2 ulp of the
      largest value: K1 forward and backward at the volo_d1 shapes (B=32,
      C=384, 12 heads, n = 64/100/144/196), at the DeiT shapes (n = 197 and
-     198, head_dim 64), at the router's edge (n=1024, head_dim 128) and with
-     f32 scores; K5 (separate q, k, v; contiguous and as views of one
+     198, head_dim 64), at the router's edge (n=1024, head_dim 128), with
+     f32 scores, on both sides of the resident path's limit (n = 256, 257),
+     at n = 1, 15, 16, 17 and at a head_dim that is no multiple of 16; the
+     forward returns the row statistics, which are held against the twin's
+     and fed to the backward, and without them both give the same bits; K5
+     (separate q, k, v; contiguous and as views of one
      buffer) at the same shapes; every schedule variant (twophase,
      twophase_bf16s, pipelined) and every G-images-per-block variant (order
-     phase or loop, G = 1, 2, 4; forward and backward) against its twin and
-     against K1's launch at the same score type; K2 forward and backward at
+     phase or loop, G = 1, 2, 4; forward and backward) against its twin,
+     against K1's launch at the same score type (2 ulp) and, bit for bit,
+     against `loop_img1`, which is the first K1 schedule; K2 forward and
+     backward at
      B=32, C=192, 6 heads, H=W=16/20/24/28 and at an odd shape (H=10, W=6,
      head_dim 48); K3 and K4 at n=196. Then the volo_d1 f32 forward through
      K1 against the unfused MHSA, and with AUTOPROG_FUSED_OUTLOOK=1 against
@@ -47,7 +55,11 @@ back to the CPU or to a plain twin):
      launched;
   8. times (CUDA events / synchronised clock, after warm-up, bf16), on the
      card named beside them: K1 at [128, 196, 384, 12 heads] with
-     `F.scaled_dot_product_attention` as its library yardstick; one
+     `F.scaled_dot_product_attention` as its library yardstick;
+     `scripts.bench_k1`'s table, K1 at both score types beside `loop_img1`
+     (the first K1 schedule: one 64-row tile per block, K and V streamed, f32
+     scores), with SDPA timed in the same turns, at the four stage shapes
+     n = 64, 100, 144, 196 and at DeiT's [64, 197, 384, 6 heads]; one
      K5 and every variant at the same shape, each beside its twin and SDPA; one
      outlooker layer's op at [128, 28, 28, 192] through the unfused path, K2,
      K3 and K4, forward and forward + backward; the attend kernel alone;
@@ -56,8 +68,10 @@ back to the CPU or to a plain twin):
      peak memory.
 
 The line before the last is the kernel report (JSON): for each kernel its
-launches on its path (K1 and K2: phases 4 to 6; K3, K4: the variants run
-of phase 8; K5 and the MHSA variants: the measurement scripts of phase 7), its
+launches on its path (K1 and K2: phases 4 to 6; K1's rows per shape: phases
+4 to 7 at that shape; `loop_img1`: its timing run of phase 8; K3, K4: the
+variants run of phase 8; K5 and the MHSA variants: the measurement scripts
+of phase 7), its
 worst error against the twin, its time, the twin's,
 the least time the card could take (`bound_ms`, from the bytes it must move
 at 3.35 TB/s and its operations at the peak of their type) and the library
@@ -121,9 +135,22 @@ def phase_build():
     libs = _build.build()
     dt = time.time() - t0
     _build.load()
+    entry = re.compile(r"Compiling entry function '(\S+)'.*?(\d+) bytes stack frame, (\d+) bytes "
+                       r"spill stores, (\d+) bytes spill loads.*?Used (\d+) registers", re.S)
     for lib in libs:
-        regs = re.findall(r"Used (\d+) registers", lib.with_suffix(".log").read_text())
+        log = lib.with_suffix(".log").read_text()
+        regs = re.findall(r"Used (\d+) registers", log)
         say(f"phase 2 build: {lib.name} (registers per kernel: {regs})")
+        if not lib.name.startswith("mhsa_qkv"):
+            continue
+        for name, stack, st, ld, used in entry.findall(log):
+            kernel = re.search(r"\d+(mhsa_[a-z_]+?)I(\S*?)EEv", name)
+            args = ", ".join(re.findall(r"L[ib](\d+)E", kernel.group(2))) if kernel else ""
+            short = f"{kernel.group(1)}<{args}>" if kernel else name
+            say(f"phase 2 ptxas: {short}: {used} registers, {stack} bytes stack, spill "
+                f"stores {st} loads {ld} bytes")
+            if "_res" in short and (int(st) or int(ld)):
+                fail(f"{short} spills registers ({st} / {ld} bytes)")
     say(f"phase 2 build: {len(libs)} libraries in {dt:.1f} s, compiled side by side")
 
 
@@ -143,11 +170,17 @@ def phase_kernels(torch):
     from autoprog_tpu_torch.ops import attention as A
     worst = {"fwd": 0.0, "bwd": 0.0}
     # (B, n, heads, d, scores_f32): the four stage resolutions of volo_d1,
-    # the router's edge, the AUTOPROG_ATTN_SCORES_F32=1 variant, and DeiT
-    # small, plain and distilled (197 and 198 tokens, head_dim 64)
+    # the router's edge, the AUTOPROG_ATTN_SCORES_F32=1 variant, DeiT small,
+    # plain and distilled (197 and 198 tokens, head_dim 64); then both sides
+    # of the resident path's limit, the smallest sequences and a head_dim
+    # that is no multiple of 16
     shapes = ([(32, n, 12, 32, False) for n in (64, 100, 144, 196)]
               + [(4, 1024, 3, 128, False), (32, 196, 12, 32, True),
-                 (8, 197, 6, 64, False), (8, 198, 6, 64, False)])
+                 (8, 197, 6, 64, False), (8, 198, 6, 64, False)]
+              + [(8, n, 4, 32, sf) for n in (256, 257) for sf in (False, True)]
+              + [(8, 256, 2, 64, False), (8, 200, 2, 72, False)]
+              + [(4, n, 2, 32, False) for n in (1, 15, 16, 17)]
+              + [(4, 100, 3, 24, False), (4, 209, 3, 40, True)])
     gen = torch.Generator("cuda").manual_seed(0)
     for dt in (torch.bfloat16, torch.float32):
         dt_name = str(dt).split(".")[-1]
@@ -155,21 +188,36 @@ def phase_kernels(torch):
             qkv = torch.randn(B, n, 3 * H * d, device="cuda", generator=gen).to(dt)
             dout = torch.randn(B, n, H * d, device="cuda", generator=gen).to(dt)
             scale = d ** -0.5
-            out = A._launch_fwd(qkv, H, scale, sf)
+            out, stats = A._launch_fwd(qkv, H, scale, sf, want_stats=True)
+            alone = A._launch_fwd(qkv, H, scale, sf)
+            dq = A._launch_bwd(qkv, dout, H, scale, sf, stats)
+            dq_alone = A._launch_bwd(qkv, dout, H, scale, sf)
             torch.cuda.synchronize()
-            ref = A.mhsa_fused_qkv_reference(qkv, H, scale, sf)
-            dq = A._launch_bwd(qkv, dout, H, scale, sf)
-            torch.cuda.synchronize()
-            dref = A.mhsa_fused_qkv_backward_reference(qkv, dout, H, scale, sf)
-            for tag, got, want in (("fwd", out, ref), ("bwd", dq, dref)):
+            ref, ref_stats = A.mhsa_fused_qkv_reference(qkv, H, scale, sf, True)
+            dref = A.mhsa_fused_qkv_backward_reference(qkv, dout, H, scale, sf, ref_stats)
+            tag = f"{dt_name} B={B} n={n} heads={H} d={d} scores_f32={int(sf)}"
+            for side, got, want in (("fwd", out, ref), ("bwd", dq, dref)):
                 if got.shape != want.shape or not torch.isfinite(got).all():
-                    fail(f"K1 {tag} {dt_name} B={B} n={n}: bad shape or non-finite")
+                    fail(f"K1 {side} {tag}: bad shape or non-finite")
                 e, tol = _err(got, want), _tol(want, dt_name)
-                say(f"phase 3 K1 {tag} {dt_name} B={B} n={n} heads={H} d={d} "
-                    f"scores_f32={int(sf)}: max_abs_err {e:.3e} (tol {tol:.3e})")
+                say(f"phase 3 K1 {side} {tag}: max_abs_err {e:.3e} (tol {tol:.3e})")
                 if not e <= tol:
-                    fail(f"K1 {tag} disagrees with its plain twin: {e} > {tol}")
-                worst[tag] = max(worst[tag], e)
+                    fail(f"K1 {side} disagrees with its plain twin: {e} > {tol}")
+                worst[side] = max(worst[side], e)
+            # the statistics: the row maximum, and with it log-sum-exp = max +
+            # log z (which does not depend on which of two near-equal scores
+            # was the maximum), at the tolerance of the scores themselves
+            lse, ref_lse = (t[..., 0] + t[..., 1].log() for t in (stats, ref_stats))
+            if stats.shape != ref_stats.shape or \
+                    not _err(stats[..., 0], ref_stats[..., 0]) <= _tol(ref_stats[..., 0], dt_name) \
+                    or not _err(lse, ref_lse) <= _tol(ref_lse, dt_name):
+                fail(f"K1 {tag}: the forward's row statistics disagree with the twin's "
+                     f"(max {_err(stats[..., 0], ref_stats[..., 0]):.3e}, log-sum-exp "
+                     f"{_err(lse, ref_lse):.3e})")
+            if not (torch.equal(out, alone) and torch.equal(dq, dq_alone)):
+                fail(f"K1 {tag}: results with and without the saved statistics differ")
+    say("phase 3 K1: row maxima and log-sum-exp within the tolerance of the twin's, and the "
+        "same bits with and without the saved statistics, at every shape")
     return worst
 
 
@@ -188,15 +236,18 @@ def phase_mhsa_variants(torch):
     views of one qkv buffer) and against K1 at f32 scores; every schedule
     variant and every G-images-per-block variant (bf16) against its twin and
     against K1's launch at the variant's score type. Same tolerance and
-    reason as K1's; against K1 the results are also compared bit for bit and
-    the outcome is printed."""
+    reason as K1's. K5 runs K1's kernels and must equal it bit for bit. The
+    variants keep the first K1 schedule's element-wise arithmetic (expf, a
+    division per score), where K1's resident path now spends an fma and an
+    ex2 and multiplies by 1 / z: they are held bit for bit against
+    `loop_img1`, which is that first schedule, and the outcome is printed."""
     from autoprog_tpu_torch.ops import attention as A
     from autoprog_tpu_torch.scripts import attn_variants as V
     from autoprog_tpu_torch.scripts import bench_attn_x as X
     worst, same = {}, {}
     gen = torch.Generator("cuda").manual_seed(5)
-    shapes = [(32, n, 12, 32) for n in (64, 100, 144, 196)] + [(8, 197, 6, 64),
-                                                                (4, 1024, 3, 128)]
+    shapes = [(32, n, 12, 32) for n in (64, 100, 144, 196)] + [
+        (8, 197, 6, 64), (4, 1024, 3, 128), (8, 256, 4, 32), (8, 257, 4, 32), (4, 17, 2, 24)]
     for dt in (torch.bfloat16, torch.float32):
         dt_name = str(dt).split(".")[-1]
         for B, n, H, d in shapes:
@@ -209,25 +260,32 @@ def phase_mhsa_variants(torch):
             g4 = dout.view(B, n, H, d)
             for how, (q, k, v) in (("views", views),
                                    ("contiguous", [t.contiguous() for t in views])):
-                out = A._launch_fused_fwd(q, k, v, scale)
-                grads = A._launch_fused_bwd(q, k, v, g4, scale)
+                out, stats = A._launch_fused_fwd(q, k, v, scale, want_stats=True)
+                grads = A._launch_fused_bwd(q, k, v, g4, scale, stats)
                 torch.cuda.synchronize()
-                _check(f"K5 fwd {how} {tag}", worst, "mhsa_fwd", out,
-                       A.mhsa_fused_reference(q, k, v, scale), dt_name)
+                ref, ref_stats = A.mhsa_fused_reference(q, k, v, scale, True)
+                _check(f"K5 fwd {how} {tag}", worst, "mhsa_fwd", out, ref, dt_name)
                 _check(f"K5 fwd {how} vs K1 at f32 scores {tag}", worst, "mhsa_fwd", out, k1f,
                        dt_name)
-                refs = A.mhsa_fused_backward_reference(q, k, v, g4, scale)
-                for nm, got, ref, k1 in zip(("dq", "dk", "dv"), grads, refs, k1b):
-                    _check(f"K5 bwd {nm} {how} {tag}", worst, "mhsa_bwd", got, ref, dt_name)
+                refs = A.mhsa_fused_backward_reference(q, k, v, g4, scale, ref_stats)
+                for nm, got, want, k1 in zip(("dq", "dk", "dv"), grads, refs, k1b):
+                    _check(f"K5 bwd {nm} {how} {tag}", worst, "mhsa_bwd", got, want, dt_name)
                     _check(f"K5 bwd {nm} {how} vs K1 {tag}", worst, "mhsa_bwd", got, k1,
                            dt_name)
-                same["mhsa"] = same.get("mhsa", True) and torch.equal(out, k1f) and all(
-                    torch.equal(a, b) for a, b in zip(grads, k1b))
+                if not (torch.equal(out, k1f)
+                        and all(torch.equal(a, b) for a, b in zip(grads, k1b))):
+                    fail(f"K5 {how} {tag} {dt_name}: not K1's bits at f32 scores")
+    say("phase 3 K5 equals K1 at f32 scores bit for bit at every shape, with and without the "
+        "saved statistics")
     # the variants: the bench shape and DeiT's (odd n, head_dim 64)
     for B, n, H, d in [(32, 196, 12, 32), (8, 197, 6, 64)]:
         qkv = torch.randn(B, n, 3 * H * d, device="cuda", generator=gen).bfloat16()
         dout = torch.randn(B, n, H * d, device="cuda", generator=gen).bfloat16()
         scale, tag = d ** -0.5, f"B={B} n={n} heads={H} d={d}"
+        k1f = A._launch_fwd(qkv, H, scale, True)
+        k1b = A._launch_bwd(qkv, dout, H, scale, True)
+        first_f = X._launch_group_fwd("loop", 1, qkv, H, scale)
+        first_b = X._launch_group_bwd("loop", 1, qkv, dout, H, scale)
         for name in V._KERNELS:
             out = V._launch(name, qkv, H, scale)
             k1 = A._launch_fwd(qkv, H, scale, V.SCORES_F32[name])
@@ -236,12 +294,11 @@ def phase_mhsa_variants(torch):
                    V.mhsa_fwd_variant_reference(name, qkv, H, scale), "bfloat16")
             _check(f"S2 {name} vs K1 scores_f32={int(V.SCORES_F32[name])} {tag}", worst, name,
                    out, k1, "bfloat16")
-            same[name] = same.get(name, True) and torch.equal(out, k1)
-        k1f = A._launch_fwd(qkv, H, scale, True)
-        k1b = A._launch_bwd(qkv, dout, H, scale, True)
+            if V.SCORES_F32[name]:
+                same[name] = same.get(name, True) and torch.equal(out, first_f)
         ref_f = X.group_reference(qkv, H, scale)
         ref_b = X.group_backward_reference(qkv, dout, H, scale)
-        for order, G in GROUPS:
+        for order, G in GROUPS + [("loop", 1)]:
             key = X.variant_name(order, G)
             out = X._launch_group_fwd(order, G, qkv, H, scale)
             grad = X._launch_group_bwd(order, G, qkv, dout, H, scale)
@@ -252,9 +309,13 @@ def phase_mhsa_variants(torch):
             _check(f"S1 {key} bwd {tag}", worst, key + "_bwd", grad, ref_b, "bfloat16")
             _check(f"S1 {key} bwd vs K1 at f32 scores {tag}", worst, key + "_bwd", grad, k1b,
                    "bfloat16")
-            same[key] = same.get(key, True) and torch.equal(out, k1f) and \
-                torch.equal(grad, k1b)
-    say(f"phase 3 bit for bit equal to K1 at the same score type: {same}")
+            same[key] = same.get(key, True) and torch.equal(out, first_f) and \
+                torch.equal(grad, first_b)
+        same["K1"] = same.get("K1", True) and torch.equal(k1f, first_f) and \
+            torch.equal(k1b, first_b)
+    say(f"phase 3 bit for bit equal to loop_img1 (the first K1 schedule, f32 scores): {same}")
+    if not all(v for k, v in same.items() if k != "K1"):
+        fail(f"a variant with f32 scores differs from loop_img1: {same}")
     # what does not fit is refused, not shrunk
     big = torch.randn(2, 1024, 3 * 2 * 64, device="cuda", generator=gen).bfloat16()
     for what, call in (("twophase at n=1024", lambda: V._launch("twophase", big, 2, 0.125)),
@@ -651,10 +712,12 @@ def phase_kernel_times(torch, card):
 
     leaf = qkv.clone().requires_grad_(True)
     lib_out = sdpa(leaf)
+    # the backward is fed the forward's statistics, as autograd feeds it
+    stats = A._launch_fwd(qkv, H, scale, False, want_stats=True)[1]
     t = {
         "fwd": _time_cuda(torch, lambda: A._launch_fwd(qkv, H, scale, False), 50),
         "plain_fwd": _time_cuda(torch, lambda: A.mhsa_fused_qkv_reference(qkv, H, scale), 20),
-        "bwd": _time_cuda(torch, lambda: A._launch_bwd(qkv, dout, H, scale, False), 50),
+        "bwd": _time_cuda(torch, lambda: A._launch_bwd(qkv, dout, H, scale, False, stats), 50),
         "plain_bwd": _time_cuda(
             torch, lambda: A.mhsa_fused_qkv_backward_reference(qkv, dout, H, scale), 20),
         "lib_fwd": _time_cuda(torch, lambda: sdpa(qkv), 50),
@@ -674,6 +737,54 @@ def phase_kernel_times(torch, card):
         f"{t['plain_bwd']:.4f}, SDPA backward {t['lib_bwd']:.4f}, bound {t['bound_bwd']:.4f} "
         f"by {t['by_bwd']})")
     return t
+
+
+def phase_k1_shape_times(torch, card):
+    """K1 at its default (bf16) scores and at f32 scores beside `loop_img1`
+    (the first K1 schedule, f32 scores), SDPA and the bound, forward and
+    backward, at every shape a trainer gives it: `scripts.bench_k1`'s table
+    with the library call timed in the same turns. The backward is fed the
+    forward's statistics, as autograd feeds it. Returns {(side, n): row} and
+    loop_img1's launch counts over this phase."""
+    import torch.nn.functional as F
+    from autoprog_tpu_torch.ops import attention as A
+    from autoprog_tpu_torch.scripts import bench_attn_x as X
+    from autoprog_tpu_torch.scripts import bench_k1
+    rows = {}
+    X.LAUNCHES.clear()
+    for B, n, H, d in bench_k1.SHAPES:
+        C, scale = H * d, d ** -0.5
+        qkv, dout = bench_k1.inputs(B, n, H, d, torch.device("cuda"), seed=8)
+        leaf = qkv.clone().requires_grad_(True)
+        q, k, v = leaf.view(B, n, 3, H, d).permute(2, 0, 3, 1, 4).unbind(0)
+
+        def sdpa():
+            o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+            return o.permute(0, 2, 1, 3).reshape(B, n, C)
+
+        lib_out = sdpa()
+        ms = bench_k1.time_shape(qkv, dout, H, 30, 3, extra={
+            "lib fwd": sdpa,
+            "lib bwd": lambda: torch.autograd.grad(lib_out, leaf, dout, retain_graph=True)})
+        ms["plain fwd"] = _time_cuda(
+            torch, lambda: A.mhsa_fused_qkv_reference(qkv, H, scale), 5, 1)
+        ms["plain bwd"] = _time_cuda(
+            torch, lambda: A.mhsa_fused_qkv_backward_reference(qkv, dout, H, scale), 5, 1)
+        prod = 2 * n * n * d * H * B
+        bound = {"fwd": _bound(4 * B * n * C * 2, 2 * prod, BF16_FLOPS),
+                 "bwd": _bound(7 * B * n * C * 2, 5 * prod, BF16_FLOPS)}
+        for side in ("fwd", "bwd"):
+            t = {"bf16": ms[side], "f32": ms[side + " f32"], "first": ms["first " + side],
+                 "lib": ms["lib " + side], "plain": ms["plain " + side]}
+            say(f"phase 8 K1 {side} [B={B}, n={n}, C={C}, heads={H}] bf16 on {card}: "
+                f"{t['bf16']:.4f} ms at bf16 scores, {t['f32']:.4f} at f32 scores"
+                + (f", {ms['fwd +stats']:.4f} writing the statistics" if side == "fwd" else "")
+                + f"; loop_img1 {t['first']:.4f}, SDPA {t['lib']:.4f}, plain {t['plain']:.4f}, "
+                f"bound {bound[side][0]:.4f} by {bound[side][1]}; K1 at f32 scores is "
+                f"{t['first'] / t['f32']:.2f}x loop_img1, K1 is {t['lib'] / t['bf16']:.2f}x SDPA, "
+                f"bf16 scores {t['bf16'] / t['f32']:.3f}x the time of f32 scores")
+            rows[side, n] = {**t, "bound": bound[side]}
+    return rows, dict(X.LAUNCHES)
 
 
 def phase_mhsa_variant_times(torch, card, t_k1):
@@ -906,11 +1017,17 @@ def main():
     worst_o = phase_outlook_kernels(torch)
     phase_model_parity(torch)
     phase_outlook_model_parity(torch)
+    from autoprog_tpu_torch.ops.attention import SHAPE_LAUNCHES
+    from autoprog_tpu_torch.scripts.bench_k1 import SHAPES as bench_k1_shapes
+    SHAPE_LAUNCHES.clear()
     fixed, fixed_k2 = phase_trainer(torch)
     prog_k1, prog_k2 = phase_prog_trainer(torch)
     deit_k1 = phase_deit(torch, card)
     measured = phase_measure(torch)
+    by_shape = dict(SHAPE_LAUNCHES)
+    say(f"phase 7 K1 launches of phases 4 to 7 by (side, tokens, head_dim): {by_shape}")
     t = phase_kernel_times(torch, card)
+    ts, first_counts = phase_k1_shape_times(torch, card)
     tv = phase_mhsa_variant_times(torch, card, t)
     to, variants = phase_outlook_times(torch, card)
     phase_step_times(torch, card)
@@ -921,6 +1038,23 @@ def main():
     def vrow(key, src, replaces):
         return {"name": key, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": measured[key], "max_abs_err": worst_v[key], **tv[key]}
+
+    def shape_rows(B, n, H, d):
+        for side, line in (("fwd", ":206"), ("bwd", ":228")):
+            r = ts[side, n]
+            common = {"route": "cuda", "plain_ms": r["plain"], "bound_ms": r["bound"][0],
+                      "bound_by": r["bound"][1], "library_ms": r["lib"]}
+            if by_shape.get((side, n, d), 0) <= 0:
+                fail(f"no trainer or bench launched K1 {side} at n={n}, head_dim={d}")
+            yield {"name": f"mhsa_qkv_{side}[B={B}, n={n}, C={H * d}, heads={H}]",
+                   "source": MHSA_SRC, "replaces": att + line,
+                   "launches": by_shape[side, n, d], "max_abs_err": worst[side],
+                   "ms": r["bf16"], "ms_f32_scores": r["f32"], **common}
+            yield {"name": f"loop_img1_{side}[B={B}, n={n}, C={H * d}, heads={H}]",
+                   "source": VARIANTS_SRC, "replaces": "scripts/bench_attn_x.py:" +
+                   ("69" if side == "fwd" else "86"),
+                   "launches": first_counts["loop_img1_" + side],
+                   "max_abs_err": worst_v["loop_img1_" + side], "ms": r["first"], **common}
 
     report = {"kernels": [
         _row("mhsa_qkv_fwd", MHSA_SRC, att + ":206", k1["fwd"], worst["fwd"], t, "fwd"),
@@ -940,7 +1074,8 @@ def main():
         vrow("pipelined", VARIANTS_SRC, "scripts/attn_variants.py:73"),
     ] + [vrow(f"{order}_img{G}_{side}", VARIANTS_SRC, "scripts/bench_attn_x.py:" + line)
          for order, G in GROUPS
-         for side, line in (("fwd", "47" if order == "phase" else "69"), ("bwd", "86"))]}
+         for side, line in (("fwd", "47" if order == "phase" else "69"), ("bwd", "86"))]
+        + [row for shape in bench_k1_shapes for row in shape_rows(*shape)]}
     say(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s on {card}")
     say(json.dumps(report))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

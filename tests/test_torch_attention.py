@@ -101,3 +101,96 @@ def test_wrapper_refuses_a_device_it_has_no_path_for():
     x = torch.zeros(1, 4, 3 * HEADS * D, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         A.mhsa_fused_qkv(x, HEADS, SCALE)
+
+
+# ------------------------------------------ the row statistics (rowmax, z)
+#
+# The forward twin can return them and the backward twin can take them, as
+# the kernels do. Held against the twins without statistics exactly (the same
+# operations on the same values) and against the interpreted Pallas kernels
+# at the tolerances above.
+
+STAT_SHAPES = [(64, 32), (100, 32), (144, 32), (196, 32), (197, 64), (272, 32)]   # n, head_dim
+STAT_TYPES = [(torch.float32, False), (torch.float32, True),
+              (torch.bfloat16, False), (torch.bfloat16, True)]
+
+
+def shaped_inputs(n, d, seed, dtype, B=1):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(B, n, 3 * HEADS * d).astype(np.float32)
+    g = rs.randn(B, n, HEADS * d).astype(np.float32)
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
+    return (jnp.asarray(x, jdt), jnp.asarray(g, jdt),
+            torch.from_numpy(x).to(dtype), torch.from_numpy(g).to(dtype))
+
+
+@pytest.mark.parametrize("dtype,scores_f32", STAT_TYPES)
+@pytest.mark.parametrize("n,d", STAT_SHAPES)
+def test_forward_twin_with_statistics(dtype, scores_f32, n, d):
+    jx, _, tx, _ = shaped_inputs(n, d, seed=n + d, dtype=dtype)
+    scale = d ** -0.5
+    out, stats = A.mhsa_fused_qkv_reference(tx, HEADS, scale, scores_f32, return_stats=True)
+    assert torch.equal(out, A.mhsa_fused_qkv_reference(tx, HEADS, scale, scores_f32))
+    assert stats.shape == (1, HEADS, n, 2) and stats.dtype == torch.float32
+    # they are the row maximum of the rounded scores and the sum of exp(S - max)
+    q, k, _ = A._split_heads(tx, HEADS)
+    s = A._scores((q.float() * scale).to(dtype), k, torch.float32 if scores_f32 else dtype)
+    assert torch.equal(stats[..., 0], s.amax(-1))
+    assert torch.equal(stats[..., 1], torch.exp(s - s.amax(-1, keepdim=True)).sum(-1))
+    assert (stats[..., 1] >= 1).all()
+    assert_close(out, ap._qkv_fwd_raw(jx, HEADS, scale, True, scores_f32=scores_f32), dtype)
+
+
+@pytest.mark.parametrize("dtype,scores_f32", STAT_TYPES)
+@pytest.mark.parametrize("n,d", STAT_SHAPES)
+def test_backward_twin_takes_the_statistics(dtype, scores_f32, n, d):
+    jx, jg, tx, tg = shaped_inputs(n, d, seed=2 * n + d, dtype=dtype)
+    scale = d ** -0.5
+    _, stats = A.mhsa_fused_qkv_reference(tx, HEADS, scale, scores_f32, return_stats=True)
+    got = A.mhsa_fused_qkv_backward_reference(tx, tg, HEADS, scale, scores_f32, stats)
+    assert torch.equal(got, A.mhsa_fused_qkv_backward_reference(tx, tg, HEADS, scale,
+                                                                scores_f32))
+    assert_close(got, ap._qkv_bwd_raw(jx, jg, HEADS, scale, True, scores_f32=scores_f32),
+                 dtype)
+
+
+@pytest.mark.parametrize("dtype,scores_f32", CASES)
+def test_function_hands_the_statistics_from_forward_to_backward(dtype, scores_f32,
+                                                               monkeypatch):
+    """MhsaFusedQkv on the CPU: the forward keeps (rowmax, z) only when a
+    backward will follow, the backward twin is given them, and the gradient
+    is the Pallas custom_vjp's."""
+    monkeypatch.setenv("AUTOPROG_ATTN_SCORES_F32", "1" if scores_f32 else "0")
+    jx, jg, tx, tg = inputs(2, 100, seed=9, dtype=dtype)
+    seen = {}
+    fwd, bwd = A.mhsa_fused_qkv_reference, A.mhsa_fused_qkv_backward_reference
+
+    def spy_fwd(qkv, heads, scale, sf=False, return_stats=False):
+        seen.setdefault("return_stats", []).append(return_stats)
+        return fwd(qkv, heads, scale, sf, return_stats)
+
+    def spy_bwd(qkv, dout, heads, scale, sf=False, stats=None):
+        seen["stats"] = stats
+        return bwd(qkv, dout, heads, scale, sf, stats)
+
+    monkeypatch.setattr(A, "mhsa_fused_qkv_reference", spy_fwd)
+    monkeypatch.setattr(A, "mhsa_fused_qkv_backward_reference", spy_bwd)
+    A.mhsa_fused_qkv(tx, HEADS, SCALE)                     # no gradient wanted
+    with torch.no_grad():
+        A.mhsa_fused_qkv(tx.clone().requires_grad_(True), HEADS, SCALE)
+    tx.requires_grad_(True)
+    A.mhsa_fused_qkv(tx, HEADS, SCALE).backward(tg)
+    assert seen["return_stats"] == [False, True, True]
+    assert torch.equal(seen["stats"], fwd(tx.detach(), HEADS, SCALE, scores_f32, True)[1])
+    _, vjp = jax.vjp(lambda x: ap.mhsa_fused_qkv(x, HEADS, SCALE, True), jx)
+    assert_close(tx.grad, vjp(jg)[0], dtype)
+
+
+def test_launch_checks_refuse_statistics_of_another_shape():
+    x = torch.zeros(2, 16, 3 * HEADS * D)
+    good = torch.zeros(2, HEADS, 16, 2)
+    assert A._check_stats("bwd", None, x, 2, HEADS, 16) is None
+    assert A._check_stats("bwd", good, x, 2, HEADS, 16) == good.data_ptr()
+    for bad in (torch.zeros(2, HEADS, 16, 3), good.double(), good.transpose(1, 2)):
+        with pytest.raises(ValueError, match="stats"):
+            A._check_stats("bwd", bad, x, 2, HEADS, 16)

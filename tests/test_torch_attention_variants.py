@@ -22,7 +22,7 @@ from jax.experimental import pallas as pl
 from autoprog_tpu.ops import attention_pallas as ap
 from autoprog_tpu_torch.ops import attention as A
 from autoprog_tpu_torch.scripts import attn_variants as V
-from autoprog_tpu_torch.scripts import bench_attn, bench_attn_x as X
+from autoprog_tpu_torch.scripts import bench_attn, bench_attn_x as X, bench_k1
 from scripts import attn_variants as jax_variants
 from scripts import bench_attn_x as jax_x
 
@@ -79,6 +79,48 @@ def test_mhsa_fused_twin_grads_match_pallas(dtype, n, heads, d):
     for leaf, ref in zip(leaves, refs):
         assert leaf.grad.dtype == dtype
         assert_close(leaf.grad, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,heads,d", SPLIT_CASES + [(100, 2, 32), (197, 1, 64), (272, 1, 32)])
+def test_mhsa_fused_twins_with_statistics(dtype, n, heads, d):
+    """K5's forward twin returns (rowmax, z) and its backward twin takes them:
+    exactly the twins without, and the Pallas kernels' results."""
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = split_inputs(n, heads, d, 5 * n + d, dtype)
+    scale = d ** -0.5
+    out, stats = A.mhsa_fused_reference(tq, tk, tv, scale, return_stats=True)
+    assert stats.shape == (2, heads, n, 2) and stats.dtype == torch.float32
+    assert torch.equal(out, A.mhsa_fused_reference(tq, tk, tv, scale))
+    grads = A.mhsa_fused_backward_reference(tq, tk, tv, tg, scale, stats)
+    for got, plain in zip(grads, A.mhsa_fused_backward_reference(tq, tk, tv, tg, scale)):
+        assert torch.equal(got, plain)
+    ref_out, vjp = jax.vjp(lambda q, k, v: ap.mhsa_fused(q, k, v, scale, True), jq, jk, jv)
+    assert_close(out, ref_out, dtype)
+    for got, ref in zip(grads, vjp(jg)):
+        assert_close(got, ref, dtype)
+
+
+def test_mhsa_fused_function_hands_the_statistics_to_its_backward(monkeypatch):
+    (_, _, _, _), (tq, tk, tv, tg) = split_inputs(25, 2, 8, 4, torch.bfloat16)
+    seen = {}
+    fwd, bwd = A.mhsa_fused_reference, A.mhsa_fused_backward_reference
+
+    def spy_fwd(q, k, v, scale, return_stats=False):
+        seen.setdefault("return_stats", []).append(return_stats)
+        return fwd(q, k, v, scale, return_stats)
+
+    def spy_bwd(q, k, v, dout, scale, stats=None):
+        seen["stats"] = stats
+        return bwd(q, k, v, dout, scale, stats)
+
+    monkeypatch.setattr(A, "mhsa_fused_reference", spy_fwd)
+    monkeypatch.setattr(A, "mhsa_fused_backward_reference", spy_bwd)
+    A.mhsa_fused(tq, tk, tv, 0.3)                          # no gradient wanted
+    tk.requires_grad_(True)                                # one operand is enough
+    A.mhsa_fused(tq, tk, tv, 0.3).backward(tg)
+    assert seen["return_stats"] == [False, True]
+    assert torch.equal(seen["stats"], fwd(tq, tk.detach(), tv, 0.3, True)[1])
+    assert torch.equal(tk.grad, bwd(tq, tk.detach(), tv, tg, 0.3)[1])
 
 
 def test_mhsa_fused_takes_the_views_of_a_qkv_buffer():
@@ -255,10 +297,29 @@ def test_bench_attn_prints_its_tables_on_the_cpu(monkeypatch, capsys):
     assert "flash" not in out
 
 
+def test_bench_k1_prints_its_table_on_the_cpu(monkeypatch, capsys):
+    monkeypatch.setenv("AUTOPROG_TORCH_DEVICE", "cpu")
+    rows = bench_k1.main([])
+    out = capsys.readouterr().out
+    assert [(r["n"], r["heads"], r["d"]) for r in rows] == [
+        (64, 12, 32), (100, 12, 32), (144, 12, 32), (196, 12, 32), (197, 6, 64)]
+    assert all(r[c] > 0 for r in rows for c in bench_k1.COLUMNS)
+    assert "on cpu" in out and "first bwd" in out
+
+
+def test_bench_k1_times_further_calls_in_the_same_turns():
+    qkv, dout = bench_k1.inputs(2, 16, 2, 8, torch.device("cpu"))
+    calls = []
+    ms = bench_k1.time_shape(qkv, dout, 2, iters=1, repeats=2,
+                             extra={"yardstick": lambda: calls.append(1)})
+    assert set(ms) == set(bench_k1.COLUMNS) | {"yardstick"}
+    assert ms["yardstick"] >= 0 and len(calls) == 2           # no warm-up on the CPU
+
+
 def test_the_benches_refuse_to_run_without_a_card(monkeypatch):
     monkeypatch.delenv("AUTOPROG_TORCH_DEVICE", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for main in (X.main, bench_attn.main):
+    for main in (X.main, bench_attn.main, bench_k1.main):
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             main(["2"])
 

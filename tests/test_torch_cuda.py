@@ -82,6 +82,121 @@ def test_kernel_takes_an_unaligned_base(cuda_device):
                  torch.bfloat16)
 
 
+# bf16 with n <= 256 and head_dim <= 64 runs the resident path (K and V of a
+# cell in shared memory, one backward kernel per cell); everything else streams.
+EDGE_SHAPES = [
+    (2, 256, 2, 32), (2, 257, 2, 32),      # both sides of the limit on n
+    (2, 256, 2, 64), (2, 200, 2, 72),      # ... and on head_dim
+    (2, 1, 2, 32), (3, 15, 2, 32), (3, 16, 2, 32), (3, 17, 2, 32),
+    (2, 208, 3, 24), (2, 209, 3, 40),      # a step boundary; head_dim % 16 != 0
+    (2, 100, 12, 32), (2, 144, 12, 32), (2, 198, 6, 64),
+]
+
+
+def assert_stats_close(stats, ref, dtype):
+    """(rowmax, z): the maximum, and log-sum-exp = max + log z, which does not
+    depend on which of two near-equal scores was the maximum, at the
+    tolerance of the scores themselves."""
+    assert_close(stats[..., 0], ref[..., 0], dtype)
+    assert_close(stats[..., 0] + stats[..., 1].log(), ref[..., 0] + ref[..., 1].log(), dtype)
+
+
+@pytest.mark.parametrize("scores_f32", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,n,heads,d", EDGE_SHAPES)
+def test_kernel_statistics_on_both_paths(cuda_device, dtype, scores_f32, B, n, heads, d):
+    """The forward's (rowmax, z) against the twin's, the backward fed them
+    against the backward twin fed the twin's, and the results with and without
+    statistics bit for bit the same."""
+    x, dout = _qkv(cuda_device, B, n, heads, d, dtype, seed=4)
+    scale = d ** -0.5
+    out, stats = A._launch_fwd(x, heads, scale, scores_f32, want_stats=True)
+    plain = A._launch_fwd(x, heads, scale, scores_f32)
+    grad = A._launch_bwd(x, dout, heads, scale, scores_f32, stats)
+    alone = A._launch_bwd(x, dout, heads, scale, scores_f32)
+    torch.cuda.synchronize()
+    ref, ref_stats = A.mhsa_fused_qkv_reference(x, heads, scale, scores_f32, True)
+    assert stats.shape == (B, heads, n, 2) and stats.dtype == torch.float32
+    assert_stats_close(stats, ref_stats, dtype)
+    assert_close(out, ref, dtype)
+    assert torch.equal(out, plain)
+    assert_close(grad, A.mhsa_fused_qkv_backward_reference(x, dout, heads, scale, scores_f32,
+                                                           ref_stats), dtype)
+    assert torch.equal(grad, alone)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,n,heads,d", EDGE_SHAPES)
+def test_mhsa_fused_kernel_statistics_on_both_paths(cuda_device, dtype, B, n, heads, d):
+    x, dout = _qkv(cuda_device, B, n, heads, d, dtype, seed=5)
+    scale = d ** -0.5
+    q, k, v = x.view(B, n, 3, heads, d).unbind(2)
+    g4 = dout.view(B, n, heads, d)
+    out, stats = A._launch_fused_fwd(q, k, v, scale, want_stats=True)
+    grads = A._launch_fused_bwd(q, k, v, g4, scale, stats)
+    alone = A._launch_fused_bwd(q, k, v, g4, scale)
+    torch.cuda.synchronize()
+    ref, ref_stats = A.mhsa_fused_reference(q, k, v, scale, True)
+    assert_stats_close(stats, ref_stats, dtype)
+    assert_close(out, ref, dtype)
+    for got, same, want in zip(grads, alone,
+                               A.mhsa_fused_backward_reference(q, k, v, g4, scale, ref_stats)):
+        assert_close(got, want, dtype)
+        assert torch.equal(got, same)
+    assert torch.equal(out.reshape(B, n, heads * d), A._launch_fwd(x, heads, scale, True))
+
+
+def test_statistics_are_kept_only_for_a_backward(cuda_device, monkeypatch):
+    x, dout = _qkv(cuda_device, 2, 196, 12, 32, torch.bfloat16)
+    asked = []
+    launch = A._launch_fwd
+
+    def spy(qkv, heads, scale, sf, want_stats=False):
+        asked.append(want_stats)
+        return launch(qkv, heads, scale, sf, want_stats)
+
+    monkeypatch.setattr(A, "_launch_fwd", spy)
+    plain = A.mhsa_fused_qkv(x, 12, 32 ** -0.5)
+    with torch.no_grad():
+        A.mhsa_fused_qkv(x.clone().requires_grad_(True), 12, 32 ** -0.5)
+    xr = x.clone().requires_grad_(True)
+    out = A.mhsa_fused_qkv(xr, 12, 32 ** -0.5)
+    out.backward(dout)
+    assert asked == [False, True, True]
+    assert torch.equal(out, plain)
+    assert_close(xr.grad, A.mhsa_fused_qkv_backward_reference(x, dout, 12, 32 ** -0.5),
+                 torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,n,heads,d", [(16, 196, 12, 32), (8, 197, 6, 64), (2, 300, 2, 64)])
+def test_gradients_are_the_same_from_run_to_run(cuda_device, B, n, heads, d):
+    """No atomics and no sum carried between blocks: bit for bit."""
+    x, dout = _qkv(cuda_device, B, n, heads, d, torch.bfloat16, seed=6)
+    scale = d ** -0.5
+    _, stats = A._launch_fwd(x, heads, scale, False, want_stats=True)
+    first = A._launch_bwd(x, dout, heads, scale, False, stats)
+    for _ in range(3):
+        assert torch.equal(A._launch_bwd(x, dout, heads, scale, False, stats), first)
+
+
+def test_kernel_with_statistics_takes_an_unaligned_base(cuda_device):
+    B, n, heads, d = 2, 197, 6, 64
+    g = torch.Generator(cuda_device).manual_seed(7)
+    flat = torch.randn(B * n * 3 * heads * d + 1, device=cuda_device, generator=g).bfloat16()
+    x = flat[1:].view(B, n, 3 * heads * d)
+    dout = torch.randn(B, n, heads * d, device=cuda_device, generator=g).bfloat16()
+    scale = d ** -0.5
+    out, stats = A._launch_fwd(x, heads, scale, False, want_stats=True)
+    dx = A._launch_bwd(x, dout, heads, scale, False, stats)
+    torch.cuda.synchronize()
+    aligned = x.clone()
+    assert torch.equal(out, A._launch_fwd(aligned, heads, scale, False))
+    assert torch.equal(dx, A._launch_bwd(aligned, dout, heads, scale, False))
+    assert_close(out, A.mhsa_fused_qkv_reference(x, heads, scale), torch.bfloat16)
+    assert_close(dx, A.mhsa_fused_qkv_backward_reference(x, dout, heads, scale),
+                 torch.bfloat16)
+
+
 def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     x = torch.zeros(2, 16, 3 * 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
@@ -305,7 +420,12 @@ def test_schedule_variant_matches_twin_and_k1(cuda_device, name, B, n, heads, d)
     torch.cuda.synchronize()
     assert V.LAUNCHES[name] == before + 1
     assert_close(out, V.mhsa_fwd_variant_reference(name, x, heads, scale), torch.bfloat16)
-    assert torch.equal(out, A._launch_fwd(x, heads, scale, V.SCORES_F32[name]))
+    # K1's resident path spends other f32 operations per score (ex2, 1 / z):
+    # 2 ulp against K1; bit for bit against the first K1 schedule, loop_img1
+    assert_close(out, A._launch_fwd(x, heads, scale, V.SCORES_F32[name]), torch.bfloat16)
+    if V.SCORES_F32[name]:
+        from autoprog_tpu_torch.scripts import bench_attn_x as X
+        assert torch.equal(out, X._launch_group_fwd("loop", 1, x, heads, scale))
     assert_close(xr.grad, A.mhsa_fused_qkv_backward_reference(
         x, dout, heads, scale, A.scores_f32_default()), torch.bfloat16)
 
@@ -345,8 +465,12 @@ def test_group_variant_matches_twin_and_k1(cuda_device, order, G, B, n, heads, d
                                                                     before[1] + 1)
     assert_close(out, X.group_reference(x, heads, scale), torch.bfloat16)
     assert_close(xr.grad, X.group_backward_reference(x, dout, heads, scale), torch.bfloat16)
-    assert torch.equal(out, A._launch_fwd(x, heads, scale, True))
-    assert torch.equal(xr.grad, A._launch_bwd(x, dout, heads, scale, True))
+    # bit for bit the first K1 schedule (loop_img1); K1's resident path
+    # spends other f32 operations per score (ex2, 1 / z): 2 ulp
+    assert torch.equal(out, X._launch_group_fwd("loop", 1, x, heads, scale))
+    assert torch.equal(xr.grad, X._launch_group_bwd("loop", 1, x, dout, heads, scale))
+    assert_close(out, A._launch_fwd(x, heads, scale, True), torch.bfloat16)
+    assert_close(xr.grad, A._launch_bwd(x, dout, heads, scale, True), torch.bfloat16)
 
 
 def test_group_variant_refuses_a_g_that_does_not_fit(cuda_device):
