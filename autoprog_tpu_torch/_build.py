@@ -59,10 +59,10 @@ SIGNATURES = {
     "mhsa_group_fwd": (_I, [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
     # qkv, dout, dqkv, stats, B, n, C, H, scale, G, phase, stream
     "mhsa_group_bwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
-    # v, logits, out, B, H, W, C, heads, scale, dtype, stream
-    "outlook_fused_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
-    # v, logits, gout, dv, dlogits, B, H, W, C, heads, scale, dtype, stream
-    "outlook_fused_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    # v, logits, out, B, H, W, C, heads, scale, dtype, general, plan, stream
+    "outlook_fused_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P]),
+    # v, logits, gout, dv, dlogits, B, H, W, C, heads, scale, dtype, general, plan, stream
+    "outlook_fused_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P]),
     # patches, logits, out, B, n, C, heads, scale, head_minor, dtype, stream
     "outlook_attend": (_I, [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
 }

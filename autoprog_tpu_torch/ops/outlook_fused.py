@@ -4,7 +4,13 @@ kernels and plain twins.
 Counterpart of `autoprog_tpu/ops/outlook_pallas.py`. The kernels are
 `csrc/outlook.cu`; its source note says what bounds them and how the design
 answers it. Kernel 3, stride 2, padding 1 and even H, W are fixed (the VOLO
-configuration).
+configuration). K2 has two routes on the card, chosen by the kernel library
+from the shape: the row kernels (`outlook_fwd_rows`, `outlook_bwd_rows`:
+persistent blocks that walk down runs of window rows with the next rows'
+loads in flight, bf16 tiles, one backward kernel), which take every head
+whose channels are whole 16-byte groups on 16-byte aligned tensors (every
+VOLO outlooker), and the general kernels (a thread per channel of a quad,
+a two-kernel backward) for the rest.
 
   outlook_attention_fused(v, logits, heads, scale)    K2: unfold, softmax,
       attend and fold in one kernel, the patches never in device memory
@@ -32,6 +38,9 @@ here), which recomputes the softmax from the saved v and logits:
 On a CUDA tensor the `torch.autograd.Function`s launch the kernels or raise:
 there is no fallback. On a CPU tensor they run the plain twins below.
 `LAUNCHES` counts kernel launches by the wrappers; the twins do not count.
+`ROUTES` counts K2's launches by route and `PLANS` keeps the last launch of
+each side as the library planned it (route, heads per block, runs per image,
+threads, blocks, shared memory).
 """
 
 from __future__ import annotations
@@ -43,6 +52,11 @@ from autoprog_tpu_torch.ops.unfold import fold_nhwc, unfold_nhwc
 #: kernel launches made by the wrappers: K2 forward, the shared backward,
 #: the head-minor attend (K3) and the head-major attend (K4)
 LAUNCHES = {"fwd": 0, "bwd": 0, "attend_hm": 0, "attend": 0}
+#: K2's launches by route: the streamed row kernels or the general ones
+ROUTES = {"fwd_rows": 0, "fwd_general": 0, "bwd_rows": 0, "bwd_general": 0}
+#: the last K2 launch of each side, as the kernel library planned it
+PLANS = {"fwd": None, "bwd": None}
+_PLAN_KEYS = ("rows", "heads_per_block", "runs", "threads", "blocks", "smem")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KK = 9
@@ -132,21 +146,34 @@ def _check_cuda(v: torch.Tensor, attn_logits: torch.Tensor, num_heads: int, what
         raise ValueError(f"{what}: v and logits must be contiguous")
 
 
-def _launch_fwd(v, attn_logits, num_heads, scale):
+def _count(side: str, plan) -> None:
+    PLANS[side] = dict(zip(_PLAN_KEYS, plan))
+    ROUTES[f"{side}_{'rows' if plan[0] else 'general'}"] += 1
+    LAUNCHES[side] += 1
+
+
+def _launch_fwd(v, attn_logits, num_heads, scale, general: bool = False):
+    """K2 forward on the card. `general` takes the general kernel at any
+    shape: only `scripts/bench_k2.py`'s before / after column asks for it."""
+    import ctypes
     from autoprog_tpu_torch import _build
     _check_cuda(v, attn_logits, num_heads, "outlook_fused_fwd")
     B, H, W, C = v.shape
     out = torch.empty_like(v)
+    plan = (ctypes.c_int * len(_PLAN_KEYS))()
     with torch.cuda.device(v.device):
         rc = _build.load().outlook_fused_fwd(
             v.data_ptr(), attn_logits.data_ptr(), out.data_ptr(), B, H, W, C, num_heads,
-            float(scale), _DTYPE_CODE[v.dtype], torch.cuda.current_stream().cuda_stream)
+            float(scale), _DTYPE_CODE[v.dtype], int(general), ctypes.addressof(plan),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "outlook_fused_fwd")
-    LAUNCHES["fwd"] += 1
+    _count("fwd", plan)
     return out
 
 
-def _launch_bwd(v, attn_logits, g, num_heads, scale):
+def _launch_bwd(v, attn_logits, g, num_heads, scale, general: bool = False):
+    """The shared backward on the card (`general` as for the forward)."""
+    import ctypes
     from autoprog_tpu_torch import _build
     _check_cuda(v, attn_logits, num_heads, "outlook_fused_bwd")
     g = g.contiguous()
@@ -156,13 +183,14 @@ def _launch_bwd(v, attn_logits, g, num_heads, scale):
                          f"{v.device}")
     B, H, W, C = v.shape
     dv, dlogits = torch.empty_like(v), torch.empty_like(attn_logits)
+    plan = (ctypes.c_int * len(_PLAN_KEYS))()
     with torch.cuda.device(v.device):
         rc = _build.load().outlook_fused_bwd(
             v.data_ptr(), attn_logits.data_ptr(), g.data_ptr(), dv.data_ptr(),
             dlogits.data_ptr(), B, H, W, C, num_heads, float(scale), _DTYPE_CODE[v.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            int(general), ctypes.addressof(plan), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "outlook_fused_bwd")
-    LAUNCHES["bwd"] += 1
+    _count("bwd", plan)
     return dv, dlogits
 
 

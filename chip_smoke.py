@@ -8,8 +8,10 @@ back to the CPU or to a plain twin):
   1. device: name, nvidia-smi name and power limit, TF32 flags (set off);
   2. build: nvcc builds the CUDA kernels from csrc/ (build/kernels/), one
      compiler process per source, all at once; prints the registers and the
-     spill bytes `ptxas -v` reports for every K1 / K5 kernel and fails if one
-     of the resident-path kernels (`mhsa_fwd_res`, `mhsa_bwd_res`) spills;
+     spill bytes `ptxas -v` reports for every K1 / K5 kernel and for K2's row
+     kernels (`outlook_fwd_rows`, `outlook_bwd_rows`, bf16 and f32) and fails
+     if one of the resident-path kernels (`mhsa_fwd_res`, `mhsa_bwd_res`) or
+     of K2's row kernels spills;
   3. kernel vs plain, on the card, bf16 and f32, tolerance 2 ulp of the
      largest value: K1 forward and backward at the volo_d1 shapes (B=32,
      C=384, 12 heads, n = 64/100/144/196), at the DeiT shapes (n = 197 and
@@ -24,16 +26,20 @@ back to the CPU or to a plain twin):
      phase or loop, G = 1, 2, 4; forward and backward) against its twin,
      against K1's launch at the same score type (2 ulp) and, bit for bit,
      against `loop_img1`, which is the first K1 schedule; K2 forward and
-     backward at
-     B=32, C=192, 6 heads, H=W=16/20/24/28 and at an odd shape (H=10, W=6,
-     head_dim 48); K3 and K4 at n=196. Then the volo_d1 f32 forward through
+     backward at B=32, C=192, 6 heads, H=W=16/20/24/28, at the d2 and d4
+     widths, at an odd shape (H=10, W=6, head_dim 48), with several runs of
+     rows per image, with more items than blocks, on one window, and through
+     the general kernels (head_dim 20 in bf16, head_dim 3, and forced at the
+     volo_d1 map), each launched twice for the same bits, each on the route
+     its shape asks for; K3 and K4 at n=196. Then the volo_d1 f32 forward through
      K1 against the unfused MHSA, and with AUTOPROG_FUSED_OUTLOOK=1 against
      =0 (1e-3);
   4. fixed trainer: `autoprog_tpu_torch.main.main` on synthetic:// with
      volo_d1 at 224 px, batch 64, token labels, MixToken, drop-path 0.1 and 4
      EMA decays, on the port's defaults (K1 and K2 on), 4 train steps and one
      eval pass; checks finite losses, the launch counts of K1 (14 per step)
-     and K2 (4 per step), the EMA trees and the eval line;
+     and K2 (4 per step, every one through K2's row kernels), the EMA trees
+     and the eval line;
   5. progressive trainer: `autoprog_tpu_torch.main_prog.main` with
      `--auto-grow --num-stages 2` on volo_d1 at full width (224 px, batch 64,
      token labels, MixToken, 4 EMA decays, clone-ema growth),
@@ -62,7 +68,9 @@ back to the CPU or to a plain twin):
      n = 64, 100, 144, 196 and at DeiT's [64, 197, 384, 6 heads]; one
      K5 and every variant at the same shape, each beside its twin and SDPA; one
      outlooker layer's op at [128, 28, 28, 192] through the unfused path, K2,
-     K3 and K4, forward and forward + backward; the attend kernel alone;
+     K3 and K4, forward and forward + backward; `scripts.bench_k2`'s table,
+     K2 at the four stage maps and the d4 width beside its general kernels
+     and the unfused op; the attend kernel alone;
      and the full volo_d1 train step at batch 128, 224 px, K1 on against
      AUTOPROG_FUSED_ATTN=0 and then AUTOPROG_FUSED_OUTLOOK 0, 1, 1, 0, with
      peak memory.
@@ -141,16 +149,26 @@ def phase_build():
         log = lib.with_suffix(".log").read_text()
         regs = re.findall(r"Used (\d+) registers", log)
         say(f"phase 2 build: {lib.name} (registers per kernel: {regs})")
-        if not lib.name.startswith("mhsa_qkv"):
-            continue
-        for name, stack, st, ld, used in entry.findall(log):
-            kernel = re.search(r"\d+(mhsa_[a-z_]+?)I(\S*?)EEv", name)
-            args = ", ".join(re.findall(r"L[ib](\d+)E", kernel.group(2))) if kernel else ""
-            short = f"{kernel.group(1)}<{args}>" if kernel else name
-            say(f"phase 2 ptxas: {short}: {used} registers, {stack} bytes stack, spill "
-                f"stores {st} loads {ld} bytes")
-            if "_res" in short and (int(st) or int(ld)):
-                fail(f"{short} spills registers ({st} / {ld} bytes)")
+        if lib.name.startswith("mhsa_qkv"):
+            for name, stack, st, ld, used in entry.findall(log):
+                kernel = re.search(r"\d+(mhsa_[a-z_]+?)I(\S*?)EEv", name)
+                args = ", ".join(re.findall(r"L[ib](\d+)E", kernel.group(2))) if kernel else ""
+                short = f"{kernel.group(1)}<{args}>" if kernel else name
+                say(f"phase 2 ptxas: {short}: {used} registers, {stack} bytes stack, spill "
+                    f"stores {st} loads {ld} bytes")
+                if "_res" in short and (int(st) or int(ld)):
+                    fail(f"{short} spills registers ({st} / {ld} bytes)")
+        elif lib.name.startswith("outlook"):
+            # K2's row kernels, forward and backward, f32 and bf16
+            for name, stack, st, ld, used in entry.findall(log):
+                kernel = re.search(r"\d+(outlook_[a-z]+_rows)I(13__nv_bfloat16|f)E", name)
+                if not kernel:
+                    continue
+                short = f"{kernel.group(1)}<{'float' if kernel.group(2) == 'f' else 'bf16'}>"
+                say(f"phase 2 ptxas: {short}: {used} registers, {stack} bytes stack, spill "
+                    f"stores {st} loads {ld} bytes")
+                if int(st) or int(ld):
+                    fail(f"{short} spills registers ({st} / {ld} bytes)")
     say(f"phase 2 build: {len(libs)} libraries in {dt:.1f} s, compiled side by side")
 
 
@@ -332,30 +350,68 @@ def phase_mhsa_variants(torch):
 
 def phase_outlook_kernels(torch):
     """K2 forward and backward and the K3 / K4 attend against their plain
-    twins; same tolerance and reason as K1's."""
+    twins; same tolerance and reason as K1's. K2 at the edges of its row
+    kernels (the trainers' batches, several runs of rows per image, more
+    items than resident blocks, the d2 / d4 widths, one window, H != W) and
+    through its general kernels (head_dims whose channels are no whole
+    16-byte group, and forced at the volo_d1 map); a second launch must give
+    the same bits."""
     from autoprog_tpu_torch.ops import outlook_fused as O
     worst = {}
-    # (B, H, W, C, heads): the four stage resolutions of volo_d1 and an odd
-    # shape (H != W, head_dim 48)
-    shapes = [(32, r, r, 192, 6) for r in (16, 20, 24, 28)] + [(8, 10, 6, 96, 2)]
+    # (B, H, W, C, heads, general): the four stage maps of volo_d1, the
+    # volo_d1 map at phase 4's batch (two runs of 7 rows an image) and at the
+    # bench's (one run of 14 rows), the d2 and d4 widths, the d4 width with
+    # more items than the card holds blocks, an odd shape (H != W, head_dim
+    # 48), several runs of rows per image, one window, and the general
+    # kernels (head_dim 20 in bf16, 3, forced)
+    shapes = ([(32, r, r, 192, 6, False) for r in (16, 20, 24, 28)]
+              + [(64, 28, 28, 192, 6, False), (128, 28, 28, 192, 6, False),
+                 (8, 28, 28, 256, 8, False), (8, 28, 28, 384, 12, False),
+                 (96, 28, 28, 384, 12, False),
+                 (8, 10, 6, 96, 2, False), (3, 64, 64, 192, 6, False),
+                 (5, 8, 12, 32, 2, False), (3, 2, 2, 8, 1, False),
+                 (1, 64, 64, 40, 2, False), (2, 6, 6, 6, 2, False),
+                 (32, 28, 28, 192, 6, True)])
     gen = torch.Generator("cuda").manual_seed(3)
+    walked = 0
     for dt in (torch.bfloat16, torch.float32):
         dt_name = str(dt).split(".")[-1]
-        for B, H, W, C, heads in shapes:
+        for B, H, W, C, heads, general in shapes:
             v = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dt)
             logits = (2 * torch.randn(B, H // 2, W // 2, heads * 81, device="cuda",
                                       generator=gen)).to(dt)
             gout = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dt)
             scale = (C // heads) ** -0.5
-            out = O._launch_fwd(v, logits, heads, scale)
-            dv, dlogits = O._launch_bwd(v, logits, gout, heads, scale)
+            runs = [(O._launch_fwd(v, logits, heads, scale, general),
+                     *O._launch_bwd(v, logits, gout, heads, scale, general))
+                    for _ in range(2)]
+            plans = dict(O.PLANS)
             torch.cuda.synchronize()
-            tag = f"B={B} H={H} W={W} C={C} heads={heads}"
+            tag = (f"B={B} H={H} W={W} C={C} heads={heads}"
+                   + f" ({'rows' if plans['fwd']['rows'] else 'general'} forward "
+                   f"{list(plans['fwd'].values())[1:]}, "
+                   f"{'rows' if plans['bwd']['rows'] else 'general'} backward "
+                   f"{list(plans['bwd'].values())[1:]})")
+            out, dv, dlogits = runs[0]
             _check(f"K2 fwd {tag}", worst, "fwd", out,
                    O.outlook_attention_fused_reference(v, logits, heads, scale), dt_name)
             rdv, rdl = O.outlook_attention_backward_reference(v, logits, gout, heads, scale)
             _check(f"K2 bwd dv {tag}", worst, "bwd", dv, rdv, dt_name)
             _check(f"K2 bwd dlogits {tag}", worst, "bwd", dlogits, rdl, dt_name)
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                fail(f"K2 {tag} {dt_name}: a second launch gave other bits")
+            rows = (C // heads) * v.element_size() % 16 == 0 and not general
+            if bool(plans["fwd"]["rows"]) != rows or bool(plans["bwd"]["rows"]) != rows:
+                fail(f"K2 {tag} {dt_name}: took the {'general' if rows else 'row'} kernels")
+            more = [B * p["runs"] * (heads // p["heads_per_block"]) > p["blocks"]
+                    for p in plans.values() if p["rows"]]
+            walked += sum(more)
+            if (B, C) == (96, 384) and not (more and all(more)):
+                fail(f"K2 {tag} {dt_name}: the row kernels had no more items than blocks")
+    say(f"phase 3 K2: the same bits from a second launch at every shape; persistent blocks "
+        f"walked more items than blocks in {walked} launches")
+    for dt in (torch.bfloat16, torch.float32):
+        dt_name = str(dt).split(".")[-1]
         B, H, C, heads = 32, 28, 192, 6
         n = (H // 2) ** 2
         patches = torch.randn(B, n, 9, C, device="cuda", generator=gen).to(dt)
@@ -421,6 +477,7 @@ def phase_trainer(torch, steps: int = 4, batch: int = 64):
     from autoprog_tpu_torch.main import main
     from autoprog_tpu_torch.ops.attention import LAUNCHES
     from autoprog_tpu_torch.ops.outlook_fused import LAUNCHES as OUTLOOK_LAUNCHES
+    from autoprog_tpu_torch.ops.outlook_fused import ROUTES
     out = tempfile.mkdtemp(prefix="chip_smoke_")
     argv = ["synthetic://", "--model", "volo_d1", "--img-size", "224", "-b", str(batch),
             "--token-label", "--token-label-data", "synthetic", "--model-ema",
@@ -432,7 +489,7 @@ def phase_trainer(torch, steps: int = 4, batch: int = 64):
     # the port's defaults on the card: K1 and K2 both on
     os.environ.pop("AUTOPROG_FUSED_ATTN", None)
     os.environ.pop("AUTOPROG_FUSED_OUTLOOK", None)
-    for counts in (LAUNCHES, OUTLOOK_LAUNCHES):
+    for counts in (LAUNCHES, OUTLOOK_LAUNCHES, ROUTES):
         for k in counts:
             counts[k] = 0
     t0 = time.time()
@@ -457,6 +514,10 @@ def phase_trainer(torch, steps: int = 4, batch: int = 64):
         f"= {4 * steps})")
     if outlook["bwd"] != 4 * steps or outlook["fwd"] < 4 * steps:
         fail(f"K2 launches {outlook} do not cover 4 layers x {steps} steps")
+    say(f"phase 4 K2 routes: {ROUTES}")
+    if ROUTES["fwd_general"] or ROUTES["bwd_general"] or \
+            ROUTES["bwd_rows"] != outlook["bwd"] or ROUTES["fwd_rows"] != outlook["fwd"]:
+        fail(f"volo_d1's steps did not all go through K2's row kernels: {ROUTES}")
     tests = [ln for ln in log.splitlines() if re.search(r"Test(_EMA_\S+)?: loss", ln)]
     for ln in tests:
         say("phase 4 eval: " + ln.split("autoprog_tpu_torch: ")[-1])
@@ -496,7 +557,7 @@ def phase_prog_trainer(torch, steps: int = 5, batch: int = 64):
             str(time_iters), "--load-with-clone-ema", "--output", out]
     os.environ["AUTOPROG_FUSED_ATTN"] = "1"
     os.environ["AUTOPROG_FUSED_OUTLOOK"] = "1"
-    for counts in (A.LAUNCHES, O.LAUNCHES):
+    for counts in (A.LAUNCHES, O.LAUNCHES, O.ROUTES):
         for k in counts:
             counts[k] = 0
     t0 = time.time()
@@ -548,6 +609,8 @@ def phase_prog_trainer(torch, steps: int = 5, batch: int = 64):
         f"K2 bwd {want_k2}, K1 bwd {want_k1}")
     if k2["bwd"] != want_k2 or k2["fwd"] < want_k2:
         fail(f"K2 launches {k2} do not cover every outlooker layer of every step")
+    if O.ROUTES["fwd_general"] or O.ROUTES["bwd_general"]:
+        fail(f"the progressive run took K2's general kernels: {O.ROUTES}")
     if k1["bwd"] != want_k1 or k1["fwd"] < want_k1:
         fail(f"K1 launches {k1} do not cover every transformer layer of every step")
     for name in ("last-search.ckpt", "last.ckpt"):
@@ -893,11 +956,30 @@ def phase_outlook_times(torch, card):
 
     patches = torch.randn(B, n, 9, C, device="cuda", generator=gen).bfloat16()
     att = (2 * torch.randn(B, n, 9, 9, heads, device="cuda", generator=gen)).bfloat16()
+    # K2 per map (`scripts.bench_k2`): the row kernels beside the general
+    # kernels (K2 before the row kernels) and the unfused op, in the same turns
+    from autoprog_tpu_torch.scripts import bench_k2
+    table = {}
+    for Bk, Hk, Ck, hk, dk in bench_k2.SHAPES:
+        vk, lk, gk = bench_k2.inputs(Bk, Hk, Ck, hk, torch.device("cuda"), seed=9, dtype=dk)
+        ms = bench_k2.time_shape(vk, lk, gk, hk, 30, 3)
+        lim = bench_k2.bound(Bk, Hk, Hk, Ck, hk, vk.element_size())
+        table[Bk, Hk, Ck, hk, dk] = ms
+        say(f"phase 8 K2 [{Bk}, {Hk}, {Hk}, {Ck}, {hk} heads] {dk} on {card}: fwd "
+            f"{ms['fwd']:.4f} ms (general {ms['general fwd']:.4f}, unfused "
+            f"{ms['unfused fwd']:.4f}, bound {lim['fwd'][0]:.4f} by {lim['fwd'][1]}, "
+            f"{lim['fwd'][0] / ms['fwd']:.0%} of its rate), bwd {ms['bwd']:.4f} ms (general "
+            f"{ms['general bwd']:.4f}, unfused forward + backward {ms['unfused fwd+bwd']:.4f}, "
+            f"bound {lim['bwd'][0]:.4f} by {lim['bwd'][1]}, "
+            f"{lim['bwd'][0] / ms['bwd']:.0%} of its rate)")
+    main_ms, f32_ms = table[B, H, C, heads, "bf16"], table[B, H, C, heads, "f32"]
     t = {
-        "fwd": _time_cuda(torch, lambda: O._launch_fwd(v, logits, heads, scale), 50),
+        "fwd": main_ms["fwd"], "general_fwd": main_ms["general fwd"],
+        "bwd": main_ms["bwd"], "general_bwd": main_ms["general bwd"],
+        "f32_fwd": f32_ms["fwd"], "f32_general_fwd": f32_ms["general fwd"],
+        "f32_bwd": f32_ms["bwd"], "f32_general_bwd": f32_ms["general bwd"],
         "plain_fwd": _time_cuda(
             torch, lambda: O.outlook_attention_fused_reference(v, logits, heads, scale), 10),
-        "bwd": _time_cuda(torch, lambda: O._launch_bwd(v, logits, gout, heads, scale), 50),
         "plain_bwd": _time_cuda(torch, lambda: O.outlook_attention_backward_reference(
             v, logits, gout, heads, scale), 10),
     }
@@ -907,16 +989,16 @@ def phase_outlook_times(torch, card):
             torch, lambda: O.outlook_attend_reference(patches, att, heads, scale, hm), 5)
     # bytes: every input read once, every output written once; operations:
     # 81 multiply-adds per window, head and channel of the head, in f32
-    item = 2
-    map_b, log_b, patch_b = B * H * H * C * item, B * n * heads * 81 * item, B * n * 9 * C * item
+    lim = bench_k2.bound(B, H, H, C, heads)
+    (t["bound_fwd"], t["by_fwd"]), (t["bound_bwd"], t["by_bwd"]) = lim["fwd"], lim["bwd"]
+    log_b, patch_b = B * n * heads * 81 * 2, B * n * 9 * C * 2
     attend_flops = 2 * B * n * 81 * C
-    t["bound_fwd"], t["by_fwd"] = _bound(2 * map_b + log_b, attend_flops, F32_FLOPS)
-    t["bound_bwd"], t["by_bwd"] = _bound(3 * map_b + 2 * log_b, 2 * attend_flops, F32_FLOPS)
     for key in ("attend_hm", "attend"):
         t["bound_" + key], t["by_" + key] = _bound(2 * patch_b + log_b, attend_flops,
                                                    F32_FLOPS)
-    say(f"phase 8 K2 alone on {card}: fwd {t['fwd']:.4f} ms (plain {t['plain_fwd']:.4f}, "
-        f"bound {t['bound_fwd']:.4f} by {t['by_fwd']}), bwd {t['bwd']:.4f} ms (plain "
+    say(f"phase 8 K2 alone on {card}: fwd {t['fwd']:.4f} ms (general {t['general_fwd']:.4f}, "
+        f"plain {t['plain_fwd']:.4f}, bound {t['bound_fwd']:.4f} by {t['by_fwd']}), bwd "
+        f"{t['bwd']:.4f} ms (general {t['general_bwd']:.4f}, plain "
         f"{t['plain_bwd']:.4f}, bound {t['bound_bwd']:.4f} by {t['by_bwd']}); attend K3 "
         f"{t['attend_hm']:.4f} ms (plain {t['plain_attend_hm']:.4f}), K4 {t['attend']:.4f} ms "
         f"(plain {t['plain_attend']:.4f}, bound {t['bound_attend']:.4f} by {t['by_attend']})")
@@ -1059,10 +1141,14 @@ def main():
     report = {"kernels": [
         _row("mhsa_qkv_fwd", MHSA_SRC, att + ":206", k1["fwd"], worst["fwd"], t, "fwd"),
         _row("mhsa_qkv_bwd", MHSA_SRC, att + ":228", k1["bwd"], worst["bwd"], t, "bwd"),
-        _row("outlook_fused_fwd", OUTLOOK_SRC, pal + ":80", fixed_k2["fwd"] + prog_k2["fwd"],
-             worst_o["fwd"], to, "fwd"),
-        _row("outlook_fused_bwd", OUTLOOK_SRC, pal + ":203", fixed_k2["bwd"] + prog_k2["bwd"],
-             worst_o["bwd"], to, "bwd"),
+        {**_row("outlook_fused_fwd", OUTLOOK_SRC, pal + ":80",
+                fixed_k2["fwd"] + prog_k2["fwd"], worst_o["fwd"], to, "fwd"),
+         "ms_general": to["general_fwd"], "ms_f32": to["f32_fwd"],
+         "ms_general_f32": to["f32_general_fwd"]},
+        {**_row("outlook_fused_bwd", OUTLOOK_SRC, pal + ":203",
+                fixed_k2["bwd"] + prog_k2["bwd"], worst_o["bwd"], to, "bwd"),
+         "ms_general": to["general_bwd"], "ms_f32": to["f32_bwd"],
+         "ms_general_f32": to["f32_general_bwd"]},
         _row("outlook_attend_hm", OUTLOOK_SRC, pal + ":237", variants["attend_hm"],
              worst_o["attend_hm"], to, "attend_hm"),
         _row("outlook_attend", OUTLOOK_SRC, pal + ":326", variants["attend"],

@@ -240,7 +240,13 @@ OUTLOOK_SHAPES = [
     (2, 10, 6, 96, 2),       # H != W, head_dim 48
     (1, 64, 64, 40, 2),      # several row tiles per image, head_dim 20
     (3, 2, 2, 8, 1),         # one window
+    (3, 64, 64, 192, 6),     # several runs of rows per image
+    (2, 28, 28, 256, 8),     # volo_d2 / d3 width
+    (2, 6, 6, 6, 2),         # head_dim 3: the general kernels in both dtypes
 ]
+#: the volo_d1 map at the trainers' batches: phase 4's 64 (two runs of 7 rows
+#: an image) and the bench's 128 (one run of 14 rows, the ring reused 4 times)
+TRAINER_SHAPES = [(64, 28, 28, 192, 6), (128, 28, 28, 192, 6)]
 
 
 def _outlook_inputs(device, dtype, B, H, W, C, heads, seed=0):
@@ -254,7 +260,7 @@ def _outlook_inputs(device, dtype, B, H, W, C, heads, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,W,C,heads", OUTLOOK_SHAPES)
+@pytest.mark.parametrize("B,H,W,C,heads", OUTLOOK_SHAPES + TRAINER_SHAPES)
 def test_outlook_fused_matches_twin(cuda_device, dtype, B, H, W, C, heads):
     O, v, logits, gout, scale = _outlook_inputs(cuda_device, dtype, B, H, W, C, heads)
     before = dict(O.LAUNCHES)
@@ -310,6 +316,96 @@ def test_outlook_hybrids_match_the_fused_op(cuda_device, name):
                                                          6, scale)
     torch.testing.assert_close(v.grad, dv, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(logits.grad, dlogits, rtol=1e-5, atol=1e-5)
+
+
+def _rows_route(C, heads, dtype):
+    """K2 takes its row kernels where a head's channels are whole 16-byte
+    groups (on aligned tensors), its general kernels elsewhere."""
+    return (C // heads) * torch.tensor([], dtype=dtype).element_size() % 16 == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,heads", OUTLOOK_SHAPES + TRAINER_SHAPES)
+def test_outlook_fused_takes_its_route_and_repeats_its_bits(cuda_device, dtype, B, H, W, C,
+                                                             heads):
+    """The row kernels at every shape they take (the general ones elsewhere),
+    and a second launch on the same inputs gives the same bits: nothing is
+    summed across blocks."""
+    O, v, logits, gout, scale = _outlook_inputs(cuda_device, dtype, B, H, W, C, heads, seed=3)
+    first = (O._launch_fwd(v, logits, heads, scale),
+             *O._launch_bwd(v, logits, gout, heads, scale))
+    assert O.PLANS["fwd"]["rows"] == O.PLANS["bwd"]["rows"] == int(_rows_route(C, heads, dtype))
+    second = (O._launch_fwd(v, logits, heads, scale),
+              *O._launch_bwd(v, logits, gout, heads, scale))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,heads", [
+    (96, 28, 28, 384, 12),       # volo_d4 width: more items than resident blocks
+])
+def test_outlook_row_kernels_walk_more_items_than_blocks(cuda_device, dtype, B, H, W, C, heads):
+    """Persistent blocks: where the items (image, run, head group) outnumber
+    the blocks the card holds, and do not divide evenly over them, each
+    block walks several and the result holds the twins' values and the same
+    bits from a second launch."""
+    O, v, logits, gout, scale = _outlook_inputs(cuda_device, dtype, B, H, W, C, heads, seed=4)
+    first = (O._launch_fwd(v, logits, heads, scale),
+             *O._launch_bwd(v, logits, gout, heads, scale))
+    for side in ("fwd", "bwd"):
+        plan = O.PLANS[side]
+        items = B * plan["runs"] * (heads // plan["heads_per_block"])
+        assert plan["rows"] == 1 and items > plan["blocks"] and items % plan["blocks"], plan
+    second = (O._launch_fwd(v, logits, heads, scale),
+              *O._launch_bwd(v, logits, gout, heads, scale))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert_close(first[0], O.outlook_attention_fused_reference(v, logits, heads, scale), dtype)
+    dv, dlogits = O.outlook_attention_backward_reference(v, logits, gout, heads, scale)
+    assert_close(first[1], dv, dtype)
+    assert_close(first[2], dlogits, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_outlook_row_kernels_take_logits_at_any_alignment(cuda_device, dtype):
+    """Logits whose base is only element-aligned (a contiguous view one value
+    into a buffer): the row kernels stage each window's span from the 16-byte
+    chunks that hold it. A v that is not 16-byte aligned goes to the general
+    kernels. Both against the twins."""
+    O, v, logits, gout, scale = _outlook_inputs(cuda_device, dtype, 2, 28, 28, 192, 6, seed=5)
+    buf = torch.empty(logits.numel() + 1, dtype=dtype, device=cuda_device)
+    shifted = buf[1:].view(logits.shape).copy_(logits)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    out = O._launch_fwd(v, shifted, 6, scale)
+    dv, dlogits = O._launch_bwd(v, shifted, gout, 6, scale)
+    assert O.PLANS["fwd"]["rows"] == O.PLANS["bwd"]["rows"] == 1
+    vbuf = torch.empty(v.numel() + 1, dtype=dtype, device=cuda_device)
+    vshift = vbuf[1:].view(v.shape).copy_(v)
+    out_general = O._launch_fwd(vshift, logits, 6, scale)
+    assert O.PLANS["fwd"]["rows"] == 0
+    torch.cuda.synchronize()
+    ref = O.outlook_attention_fused_reference(v, logits, 6, scale)
+    assert_close(out, ref, dtype)
+    assert_close(out_general, ref, dtype)
+    rdv, rdl = O.outlook_attention_backward_reference(v, logits, gout, 6, scale)
+    assert_close(dv, rdv, dtype)
+    assert_close(dlogits, rdl, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_outlook_general_kernels_match_twin_at_the_volo_map(cuda_device, dtype):
+    """The general kernels, which the row kernels replaced on the main path,
+    still hold the twins where they are forced."""
+    O, v, logits, gout, scale = _outlook_inputs(cuda_device, dtype, 4, 28, 28, 192, 6, seed=6)
+    out = O._launch_fwd(v, logits, 6, scale, general=True)
+    dv, dlogits = O._launch_bwd(v, logits, gout, 6, scale, general=True)
+    torch.cuda.synchronize()
+    assert O.PLANS["fwd"]["rows"] == O.PLANS["bwd"]["rows"] == 0
+    assert_close(out, O.outlook_attention_fused_reference(v, logits, 6, scale), dtype)
+    rdv, rdl = O.outlook_attention_backward_reference(v, logits, gout, 6, scale)
+    assert_close(dv, rdv, dtype)
+    assert_close(dlogits, rdl, dtype)
 
 
 def test_outlook_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):

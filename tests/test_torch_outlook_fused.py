@@ -28,6 +28,7 @@ from autoprog_tpu_torch.models import layers as tlayers
 from autoprog_tpu_torch.ops import outlook_fused as O
 
 SHAPES = [(2, 8, 8, 16, 4), (1, 16, 16, 192, 6)]
+R224 = (1, 28, 28, 192, 6)      # the volo_d1 outlooker's map at 224 px
 OPS = {
     "fused": (jpal.outlook_attention_fused, O.outlook_attention_fused),
     "hybrid": (jpal.outlook_attention_hybrid, O.outlook_attention_hybrid),
@@ -42,9 +43,7 @@ def make_inputs(B, H, W, C, heads, seed=0):
     return v, attn, (C // heads) ** -0.5
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=["small", "volo_d1_r128"])
-@pytest.mark.parametrize("name", list(OPS))
-def test_forward_matches_the_interpreted_pallas_kernel(name, shape):
+def _check_forward(name, shape):
     jfn, tfn = OPS[name]
     heads = shape[-1]
     v, attn, scale = make_inputs(*shape)
@@ -53,9 +52,7 @@ def test_forward_matches_the_interpreted_pallas_kernel(name, shape):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-6)
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=["small", "volo_d1_r128"])
-@pytest.mark.parametrize("name", list(OPS))
-def test_gradients_match_the_jax_custom_vjp(name, shape):
+def _check_gradients(name, shape):
     jfn, tfn = OPS[name]
     heads = shape[-1]
     v, attn, scale = make_inputs(*shape, seed=2)
@@ -66,6 +63,28 @@ def test_gradients_match_the_jax_custom_vjp(name, shape):
     tfn(tv, ta, heads, scale).square().sum().backward()
     np.testing.assert_allclose(tv.grad.numpy(), np.asarray(gv_r), rtol=2e-4, atol=2e-5)
     np.testing.assert_allclose(ta.grad.numpy(), np.asarray(ga_r), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=["small", "volo_d1_r128"])
+@pytest.mark.parametrize("name", list(OPS))
+def test_forward_matches_the_interpreted_pallas_kernel(name, shape):
+    _check_forward(name, shape)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=["small", "volo_d1_r128"])
+@pytest.mark.parametrize("name", list(OPS))
+def test_gradients_match_the_jax_custom_vjp(name, shape):
+    _check_gradients(name, shape)
+
+
+@pytest.mark.parametrize("check", [_check_forward, _check_gradients],
+                         ids=["forward", "gradients"])
+def test_fused_op_at_the_224_px_map(check):
+    """The fused op (forward, and the gradients of sum(out^2)) at the map
+    the trainers give K2 at 224 px, [1, 28, 28, 192] with 6 heads, against
+    the interpreted Pallas kernel and the JAX custom_vjp; f32, tolerances as
+    above."""
+    check("fused", R224)
 
 
 @pytest.mark.parametrize("name", list(OPS))
@@ -170,3 +189,31 @@ def test_outlook_layer_routes_to_the_fused_op(monkeypatch):
     assert not tlayers._use_fused_outlook(3, 2, 1, 8, 8, cpu)
     assert tlayers._use_fused_outlook(3, 2, 1, 8, 8, cuda)
     assert not tlayers._use_fused_outlook(3, 1, 1, 8, 8, cuda)
+
+
+def test_bench_k2_runs_on_the_cpu_and_counts_the_bound():
+    """`scripts/bench_k2.py`: every column timed on the CPU twins at a small
+    map, and the bound at the volo_d1 map as `chip_smoke.py` counts it: v,
+    the logits and out (backward: v, the logits, g, dv, dlogits) moved once
+    at 3.35 TB/s."""
+    from autoprog_tpu_torch.scripts import bench_k2
+    v, logits, gout = bench_k2.inputs(1, 8, 32, 2, torch.device("cpu"))
+    ms = bench_k2.time_shape(v, logits, gout, 2, iters=1, repeats=1)
+    assert set(bench_k2.COLUMNS) <= set(ms) and all(t > 0 for t in ms.values())
+    lim = bench_k2.bound(128, 28, 28, 192, 6)
+    map_b, log_b = 128 * 28 * 28 * 192 * 2, 128 * 196 * 6 * 81 * 2
+    assert lim["fwd"] == pytest.approx(((2 * map_b + log_b) / 3.35e12 * 1e3, "bytes"))
+    assert lim["bwd"] == pytest.approx(((3 * map_b + 2 * log_b) / 3.35e12 * 1e3, "bytes"))
+
+
+def test_k2_variants_applies_every_edit_or_refuses():
+    """`scripts/k2_variants.py` builds its variants from text replacements of
+    `csrc/outlook.cu`: each must occur in the source, and all of one
+    variant apply."""
+    from autoprog_tpu_torch.scripts.k2_variants import apply_edits
+    src = "constexpr int AHEAD = 2; constexpr int VB = 16;"
+    assert apply_edits(src, "") == src
+    assert apply_edits(src, "AHEAD = 2->AHEAD = 1|VB = 16->VB = 8") == \
+        "constexpr int AHEAD = 1; constexpr int VB = 8;"
+    with pytest.raises(ValueError, match="does not occur"):
+        apply_edits(src, "DT = 4->DT = 2")
