@@ -15,11 +15,16 @@ DeiT `patch_embed` is the patchify conv itself, with `dist_token` and
   dist_token                    -> unchanged
 
 The fused `qkv` out-axis keeps its (3, heads, d) order, which K1 relies on.
+
+`jax_payload_to_torch` turns a whole checkpoint of the JAX package (the
+tree `autoprog_tpu/train/checkpoint.py:build_payload` writes) into the
+port's payload: every tree through `flax_to_torch`, and the optax state
+through `optax_to_adamw`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -58,4 +63,55 @@ def flax_to_torch(params: Mapping[str, Any],
     _flatten(params, "", out)
     if batch_stats:
         _flatten(batch_stats, "", out)
+    return out
+
+
+ADAM_KEYS = ("count", "mu", "nu")
+
+
+def _adam_states(tree: Any, out: List[Mapping[str, Any]]) -> None:
+    if not isinstance(tree, Mapping):
+        return
+    if all(k in tree for k in ADAM_KEYS):
+        out.append(tree)
+        return
+    for v in tree.values():
+        _adam_states(v, out)
+
+
+def optax_to_adamw(opt_state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX package's optax chain state (`autoprog_tpu/train/optim.py`:
+    clip -> scale_by_adam -> masked add_decayed_weights, serialised as
+    {"0": ..., "1": ...}) as the port's Adam state keyed by parameter name:
+    {"count": int, "exp_avg": {name: mu}, "exp_avg_sq": {name: nu}}. The
+    chain is walked, so clip, mask and empty states anywhere in it are
+    passed over; it must hold exactly one scale_by_adam state."""
+    found: List[Mapping[str, Any]] = []
+    _adam_states(opt_state, found)
+    if len(found) != 1:
+        raise NotImplementedError(
+            f"the optimizer state holds {len(found)} scale_by_adam states; the port "
+            "restores the state of --opt adamw / adam only")
+    adam = found[0]
+    return {"count": int(np.asarray(adam["count"])),
+            "exp_avg": flax_to_torch(adam["mu"]),
+            "exp_avg_sq": flax_to_torch(adam["nu"])}
+
+
+def jax_payload_to_torch(payload: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX checkpoint payload as the port's: `state_dict`, `batch_stats`
+    and every `state_dict_ema_{i}` as state_dicts, `optimizer` as
+    `optax_to_adamw`'s dict where the chain holds an Adam state (else left
+    as it is, for `restore_state` to refuse), the rest (arch, stage_info,
+    step, epoch, metric, args_text, lr_schedule) as it is."""
+    out = dict(payload)
+    for key, tree in payload.items():
+        if key == "state_dict" or key.startswith("state_dict_ema_"):
+            out[key] = flax_to_torch(tree)
+    out["batch_stats"] = flax_to_torch(payload.get("batch_stats") or {})
+    if "optimizer" in payload:
+        try:
+            out["optimizer"] = optax_to_adamw(payload["optimizer"])
+        except NotImplementedError:
+            pass
     return out

@@ -1,7 +1,7 @@
 """Training engine, counterpart of `autoprog_tpu/engine.py`: `setup`,
 `init_model_state`, the train / eval / search loaders, `train_one_epoch`,
-`evaluate`, `evaluate_all`, `create_stage_model_and_state` and
-`ckpt_payload`. `main.py` and `main_prog.py` are thin loops over these.
+`evaluate`, `evaluate_all`, `create_stage_model_and_state`, `ckpt_payload`
+and `resume_from`. `main.py` and `main_prog.py` are thin loops over these.
 
 The host input pipeline (datasets, augmentation, mixup, token-label map
 cropping) is the port's own `data/` package. Batches arrive as numpy and
@@ -10,9 +10,9 @@ the host only at log intervals.
 
 A stage rebuild makes a new model and optimizer (fresh moments, the two
 weight-decay groups of `train/optim.py`), remaps the parameters and every
-EMA tree into it (`prog/growth.py`) and carries the step count on; the LR
-schedule is a function of the epoch and is untouched. Resume is not ported
-yet.
+EMA tree into it (`prog/growth.py`); its step count starts again at 0, as
+the JAX package's does. The LR schedule is a function of the epoch and is
+untouched.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from autoprog_tpu_torch.losses import build_train_loss
 from autoprog_tpu_torch.platform import default_device
 from autoprog_tpu_torch.prog.growth import grow_batch_stats, grow_params, shrink_params
 from autoprog_tpu_torch.registry import create_model
-from autoprog_tpu_torch.train.checkpoint import CheckpointSaver, build_payload
+from autoprog_tpu_torch.train.checkpoint import CheckpointSaver, build_payload, restore_state
 from autoprog_tpu_torch.train.optim import create_grad_clip, create_optimizer, create_scheduler
 from autoprog_tpu_torch.train.state import TrainState
 from autoprog_tpu_torch.train.steps import StepBuilder
@@ -288,8 +288,9 @@ def create_stage_model_and_state(ctx: TrainContext, new_model_name: str, *, dp: 
                                  load: str, origin_l: int = 0,
                                  seed_offset: int = 0) -> None:
     """Grow or shrink into a new architecture: build the new model, remap
-    the weights and every EMA tree, reset the optimizer moments, keep the
-    step count and the global LR schedule."""
+    the weights and every EMA tree, reset the optimizer moments and the
+    step count (as the JAX package's fresh `TrainState` does), keep the
+    global LR schedule."""
     args = ctx.args
     prev_state = ctx.state
     prev_layers = tuple(ctx.mdef.arch.layers)
@@ -347,7 +348,6 @@ def create_stage_model_and_state(ctx: TrainContext, new_model_name: str, *, dp: 
         for n, b in ctx.state.model.named_buffers():
             b.copy_(new_stats[n])
     ctx.state.ema_params = new_ema
-    ctx.state.step = prev_state.step
 
 
 def ckpt_payload(ctx: TrainContext, stage_info: Dict[str, Any]) -> Dict[str, Any]:
@@ -356,3 +356,19 @@ def ckpt_payload(ctx: TrainContext, stage_info: Dict[str, Any]) -> Dict[str, Any
     if hasattr(ctx.schedule, "state_dict"):  # plateau schedule state
         payload["lr_schedule"] = ctx.schedule.state_dict()
     return payload
+
+
+def resume_from(ctx: TrainContext, ckpt: Dict[str, Any]) -> int:
+    """Progressive-aware resume from a loaded payload (`load_checkpoint_file`,
+    either package's file): rebuild the checkpoint's arch (with its stage's
+    drop-path) where it differs from the current one, restore weights, BN
+    stats, optimizer (unless --no-resume-opt), EMA trees, step and the
+    plateau schedule's state. Returns the epoch to resume at."""
+    arch = ckpt.get("arch")
+    if arch and arch != ctx.mdef.name:
+        stage_info = ckpt.get("stage_info") or {}
+        init_model_state(ctx, arch, float(stage_info.get("dp", 0.0)), ctx.args.seed)
+    restore_state(ckpt, ctx.state, restore_opt=not ctx.args.no_resume_opt)
+    if hasattr(ctx.schedule, "load_state_dict") and "lr_schedule" in ckpt:
+        ctx.schedule.load_state_dict(ckpt["lr_schedule"])
+    return int(ckpt.get("epoch", -1)) + 1

@@ -7,6 +7,10 @@ The flags are the port's own `config.py` (a copy of the JAX package's, so
 both trainers take the same command line). The device is
 `AUTOPROG_TORCH_DEVICE` (default cuda; see platform.py). Flags whose
 machinery is not ported raise NotImplementedError naming the flag.
+
+`--resume` (either package's checkpoint; then `--start-epoch` overrides the
+epoch), `--finetune` and `--initial-checkpoint` are each followed by one
+eval pass.
 """
 
 from __future__ import annotations
@@ -19,18 +23,26 @@ from autoprog_tpu_torch.config import parse_args, resolve_data_config
 from autoprog_tpu_torch.utils.logging import make_output_dir, setup_logging, update_summary
 from autoprog_tpu_torch.utils.meters import AverageMeter
 from autoprog_tpu_torch import engine
+from autoprog_tpu_torch.finetune import load_pretrained_weights
 from autoprog_tpu_torch.registry import create_model
-from autoprog_tpu_torch.train.checkpoint import CheckpointSaver
+from autoprog_tpu_torch.train.checkpoint import CheckpointSaver, load_checkpoint_file
 
 _logger = logging.getLogger("autoprog_tpu_torch")
+
+
+UNPORTED_DATASETS = ("tfds/", "hfds/")
+
+
+def check_dataset(dataset: str) -> None:
+    """Refuse the dataset kinds the port cannot read (no tensorflow_datasets,
+    no local HuggingFace data to test against)."""
+    if dataset.startswith(UNPORTED_DATASETS):
+        raise NotImplementedError(f"--dataset {dataset}: not ported to autoprog_tpu_torch yet")
 
 
 def check_ported(args) -> None:
     """Refuse flags whose machinery the port does not have yet."""
     refused = [
-        ("--resume", bool(args.resume)),
-        ("--finetune", bool(args.finetune)),
-        ("--initial-checkpoint", bool(getattr(args, "initial_checkpoint", ""))),
         ("--model-parallel", getattr(args, "model_parallel", 1) > 1),
         ("--remat", bool(getattr(args, "remat", ""))),
         ("--model-ema-bf16", getattr(args, "model_ema_bf16", False)),
@@ -38,13 +50,22 @@ def check_ported(args) -> None:
         ("--uint8-pipe", getattr(args, "uint8_pipe", False)),
         ("--aug-splits", getattr(args, "aug_splits", 0) > 1),
         ("--profile", bool(getattr(args, "profile", ""))),
-        ("--dataset " + str(args.dataset),
-         args.dataset not in ("", "synthetic", "folder")),
-        (args.data_dir, args.data_dir.startswith("procgen://")),
     ]
     for flag, hit in refused:
         if hit:
             raise NotImplementedError(f"{flag}: not ported to autoprog_tpu_torch yet")
+    check_dataset(args.dataset)
+
+
+def load_initial_weights(ctx, loader_eval) -> None:
+    """--finetune (wins when both are given) or --initial-checkpoint: the
+    checkpoint's parameters (its first EMA tree with --model-ema) into the
+    model, adapted to its resolution and class count, then one eval pass.
+    Only the parameters load, as in the JAX package."""
+    args = ctx.args
+    path = args.finetune or args.initial_checkpoint
+    load_pretrained_weights(ctx.state.model, path, use_ema=args.model_ema)
+    engine.evaluate_all(ctx, loader_eval)
 
 
 def main(argv=None):
@@ -71,7 +92,17 @@ def main(argv=None):
     with open(os.path.join(output_dir, "args.yaml"), "w") as f:
         f.write(args_text)
 
-    start_epoch = args.start_epoch or 0
+    start_epoch = 0
+    if args.resume:
+        start_epoch = engine.resume_from(ctx, load_checkpoint_file(args.resume))
+        if args.start_epoch is not None:
+            start_epoch = args.start_epoch
+        engine.evaluate_all(ctx, loader_eval)
+    elif args.start_epoch is not None:
+        start_epoch = args.start_epoch
+    if args.finetune or args.initial_checkpoint:
+        load_initial_weights(ctx, loader_eval)
+
     num_epochs = ctx.schedule.num_epochs
     _logger.info("Scheduled epochs: %d", num_epochs)
     epoch_time_m = AverageMeter()

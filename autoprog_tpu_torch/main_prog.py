@@ -8,9 +8,13 @@ Everything in main.py plus: the progressive stage schedule, per-stage
 model / optimizer / loader rebuild with weight remapping, the
 elastic-supernet auto-grow search and dynamic gradient-accumulation
 scaling. The flags are the port's own `config.py`; the device is
-`AUTOPROG_TORCH_DEVICE` (default cuda; see platform.py). `--resume`,
-`--finetune` and `--initial-checkpoint` raise NotImplementedError, as in
-main.py; the checkpoints do record the stage's arch for a later resume.
+`AUTOPROG_TORCH_DEVICE` (default cuda; see platform.py).
+
+`--resume` is progressive-aware: the checkpoint's stage record (r, h, l,
+drop-path, RandAugment, random erasing, crop scale) and arch are restored,
+so the run goes on at that stage and through the boundaries after it,
+searches included. `--finetune` / `--initial-checkpoint` load into the
+stage-0 model when not resuming.
 """
 
 from __future__ import annotations
@@ -22,11 +26,11 @@ from typing import List
 
 from autoprog_tpu_torch import engine
 from autoprog_tpu_torch.config import parse_args, parse_variant_name
-from autoprog_tpu_torch.main import check_ported
+from autoprog_tpu_torch.main import check_ported, load_initial_weights
 from autoprog_tpu_torch.prog import autogrow
 from autoprog_tpu_torch.prog.depth import elastic_keep_masks
 from autoprog_tpu_torch.prog.schedule import get_divisor, no_repeats, progressive_schedule
-from autoprog_tpu_torch.train.checkpoint import CheckpointSaver
+from autoprog_tpu_torch.train.checkpoint import CheckpointSaver, load_checkpoint_file
 from autoprog_tpu_torch.utils.logging import make_output_dir, setup_logging, update_summary
 from autoprog_tpu_torch.utils.meters import AverageMeter
 
@@ -169,7 +173,27 @@ def main(argv=None):
     with open(os.path.join(output_dir, "args.yaml"), "w") as f:
         f.write(args_text)
 
-    start_epoch = args.start_epoch or 0
+    start_epoch = 0
+    if args.resume:
+        ckpt = load_checkpoint_file(args.resume)
+        info = ckpt.get("stage_info") or {}
+        cur.update({k: info[k] for k in ("r", "h", "l", "dp", "aa", "re", "resize")
+                    if k in info})
+        if isinstance(cur["resize"], (list, tuple)):
+            cur["resize"] = tuple(cur["resize"])
+        start_epoch = engine.resume_from(ctx, ckpt)
+        del ckpt                    # a host copy of every tree of the run
+        args.model = ctx.mdef.name
+        splits = splits_for(cur["l"], cur["r"])
+        loader_train.close()
+        loader_train = engine.make_train_loader(
+            ctx, aa=cur["aa"], re_prob=cur["re"], resize=cur["resize"])
+        engine.evaluate_all(ctx, loader_eval)
+    if args.start_epoch is not None:
+        start_epoch = args.start_epoch
+    if (args.finetune or args.initial_checkpoint) and not args.resume:
+        # blocks absent at the stage-0 depth keep their init and grow later
+        load_initial_weights(ctx, loader_eval)
 
     num_epochs = ctx.schedule.num_epochs
     _logger.info("Scheduled epochs: %d", num_epochs)

@@ -243,3 +243,6 @@ class PlateauSchedule:
 
     def state_dict(self) -> dict:
         return {"lr": self._lr, "best": self._best, "bad_epochs": self._bad_epochs}
+
+    def load_state_dict(self, d: dict) -> None:
+        self._lr, self._best, self._bad_epochs = d["lr"], d["best"], d["bad_epochs"]

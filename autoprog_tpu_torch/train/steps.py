@@ -124,20 +124,40 @@ class StepBuilder:
         state.step += 1
         return {"loss": loss_sum / splits}
 
+    @staticmethod
+    def _eval_logits(state: TrainState, images: torch.Tensor, keep, params) -> torch.Tensor:
+        model = state.model
+        if params is None:
+            logits = model(images, train=False, keep=keep)
+        else:
+            logits = torch.func.functional_call(model, params, (images,),
+                                                {"train": False, "keep": keep})
+        return logits[0] if isinstance(logits, tuple) else logits
+
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: Dict[str, torch.Tensor], *, keep=None,
                   params: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """Metric sums of one eval batch; `params` (an EMA tree) replaces the
         model's parameters for this call."""
-        model = state.model
-        if params is None:
-            logits = model(batch["image"], train=False, keep=keep)
-        else:
-            logits = torch.func.functional_call(model, params, (batch["image"],),
-                                                {"train": False, "keep": keep})
-        if isinstance(logits, tuple):
-            logits = logits[0]
-        return metrics_from_logits(logits, batch["label"])
+        return metrics_from_logits(self._eval_logits(state, batch["image"], keep, params),
+                                   batch["label"])
+
+    @torch.no_grad()
+    def logits_eval_step(self, state: TrainState, batch: Dict[str, torch.Tensor], *,
+                         tta: int = 1, keep=None,
+                         params: Optional[Dict[str, torch.Tensor]] = None
+                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """One forward shared by the metric sums, `--tta` and `--real-labels`:
+        with tta > 1 the batch holds `tta` adjacent views of each sample and
+        the f32 logits are averaged over each group first. Padding rows
+        (label -1, trailing, a whole group each) drop out of every sum.
+        Returns (metric sums, argmax per group)."""
+        logits = self._eval_logits(state, batch["image"], keep, params).float()
+        labels = batch["label"]
+        if tta > 1:
+            logits = logits.reshape(-1, tta, logits.shape[-1]).mean(1)
+            labels = labels[::tta]
+        return metrics_from_logits(logits, labels), logits.argmax(-1).int()
 
     # ------------------------------------------------------- search probes
 

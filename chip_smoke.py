@@ -73,10 +73,23 @@ back to the CPU or to a plain twin):
      and the unfused op; the attend kernel alone;
      and the full volo_d1 train step at batch 128, 224 px, K1 on against
      AUTOPROG_FUSED_ATTN=0 and then AUTOPROG_FUSED_OUTLOOK 0, 1, 1, 0, with
-     peak memory.
+     peak memory;
+  9. the checkpoint path on phase 4's and phase 5's files: `validate.main`
+     on phase 4's model_best.ckpt (plain and `--use-ema --ema-idx 3`, the
+     trainer's 64 eval samples in one batch) must give the trainer's
+     summary row exactly, launching K1 14 and K2's row kernels 4 times;
+     `main.main --resume last.ckpt` for one more epoch (the state before the
+     first resumed step equal to the file's bit for bit: parameters, 4 EMA
+     trees, Adam moments, step; 4 finite losses; K1 / K2 backward 14 / 4 a
+     step); `main_prog.main --resume checkpoint-2.ckpt` (after the growth to
+     r=224, l=18: the stage and arch rebuilt from the record, the same bit
+     check, the step restarting at the stage as in the JAX package: 5 -> 10);
+     `--finetune` into 100 classes for 2 steps (heads re-initialised, every
+     other parameter the file's); then the volo_d1 eval forward at b=128,
+     224 px, bf16 with K1 + K2 on against both off (on, off, off, on).
 
 The line before the last is the kernel report (JSON): for each kernel its
-launches on its path (K1 and K2: phases 4 to 6; K1's rows per shape: phases
+launches on its path (K1 and K2: phases 4 to 6 and 9; K1's rows per shape: phases
 4 to 7 at that shape; `loop_img1`: its timing run of phase 8; K3, K4: the
 variants run of phase 8; K5 and the MHSA variants: the measurement scripts
 of phase 7), its
@@ -535,7 +548,7 @@ def phase_trainer(torch, steps: int = 4, batch: int = 64):
         f"min |ema_i - ema_j| = {min(d_e):.3e}")
     if min(d_p) <= 0 or min(d_e) <= 0:
         fail("EMA trees equal the params or each other")
-    return launches, outlook
+    return launches, outlook, run, argv[:-2]
 
 
 def phase_prog_trainer(torch, steps: int = 5, batch: int = 64):
@@ -620,7 +633,7 @@ def phase_prog_trainer(torch, steps: int = 5, batch: int = 64):
     if ckpt["arch"] != "volo_h12_l18" or ckpt["stage_info"]["l"] != 18 or \
             not all(torch.isfinite(v).all() for v in ckpt["state_dict"].values()):
         fail("last.ckpt does not hold a finite volo_h12_l18")
-    return k1, k2
+    return k1, k2, run, argv[:-2]
 
 
 def _reset_mhsa_counts():
@@ -1074,6 +1087,205 @@ def phase_step_times(torch, card, batch: int = 128, iters: int = 10):
         f"unfused outlook path in the two repetitions ({verdict} at least 2 %)")
 
 
+def _counted(torch, run):
+    """Run `run()` with K1's and K2's counts set to 0 just before; returns
+    its result and the launches it made (K1, K2, K2's routes)."""
+    from autoprog_tpu_torch.ops import attention as A
+    from autoprog_tpu_torch.ops import outlook_fused as O
+    for counts in (A.LAUNCHES, O.LAUNCHES, O.ROUTES):
+        for k in counts:
+            counts[k] = 0
+    out = run()
+    torch.cuda.synchronize()
+    return (out, {k: A.LAUNCHES[k] for k in ("fwd", "bwd")},
+            {k: O.LAUNCHES[k] for k in ("fwd", "bwd")}, dict(O.ROUTES))
+
+
+def _first_epoch_hook(check):
+    """Wrap engine.train_one_epoch so that `check(ctx, epoch)` sees the state
+    before the first step of the run; returns the restore function."""
+    from autoprog_tpu_torch import engine
+    original = engine.train_one_epoch
+    seen = []
+
+    def wrapped(ctx, epoch, *a, **kw):
+        if not seen:
+            seen.append(epoch)
+            check(ctx, epoch)
+        return original(ctx, epoch, *a, **kw)
+    engine.train_one_epoch = wrapped
+
+    def restore():
+        engine.train_one_epoch = original
+        if not seen:
+            fail("the run took no train epoch")
+    return restore
+
+
+def phase_checkpoint(torch, card, fixed_run, fixed_argv, prog_run, prog_argv, batch: int = 128):
+    """The checkpoint path on phase 4's and phase 5's files: validate against
+    the trainer's eval row, a fixed and a progressive resume, a finetune into
+    100 classes, then the eval forward's time. Returns K1's and K2's launches
+    over the phase's runs."""
+    import csv
+    from autoprog_tpu_torch import create_model, main as fixed_main, main_prog, validate
+    from autoprog_tpu_torch.train.checkpoint import load_checkpoint_file
+    os.environ.pop("AUTOPROG_FUSED_ATTN", None)
+    os.environ.pop("AUTOPROG_FUSED_OUTLOOK", None)
+    k1, k2 = {"fwd": 0, "bwd": 0}, {"fwd": 0, "bwd": 0}
+
+    def add(a1, a2):
+        for side in ("fwd", "bwd"):
+            k1[side] += a1[side]
+            k2[side] += a2[side]
+
+    # validate on phase 4's model_best.ckpt: the trainer's 64 eval samples in
+    # one batch of 64, bf16, K1 and K2 on
+    with open(os.path.join(fixed_run, "summary.csv")) as f:
+        row = list(csv.DictReader(f))[-1]
+    best = os.path.join(fixed_run, "model_best.ckpt")
+    for flags, suffix in (([], ""), (["--use-ema", "--ema-idx", "3"], "_EMA_0.9996")):
+        argv = ["synthetic://", "--checkpoint", best, "--num-classes", "1000", "--img-size",
+                "224", "-b", "64", "--workers", "0", "--fake-data-size", "64"] + flags
+        t0 = time.time()
+        res, a1, a2, routes = _counted(torch, lambda: validate.main(argv)[0])
+        add(a1, a2)
+        want = {k: float(row[f"eval_{k}{suffix}"]) for k in ("top1", "top5", "loss")}
+        got = {k: res[k] for k in want}
+        say(f"phase 9 python -m autoprog_tpu_torch.validate {' '.join(argv)} "
+            f"({time.time() - t0:.1f} s): {got}; trainer's row {want}; launches K1 {a1}, "
+            f"K2 {a2}")
+        if got != want or res["count"] != 64:
+            fail(f"validate's metrics {got} are not the trainer's {want}")
+        if a1 != {"fwd": 14, "bwd": 0} or a2 != {"fwd": 4, "bwd": 0} or \
+                routes["fwd_rows"] != 4:
+            fail(f"validate's one batch did not launch K1 14 times and K2's row kernels 4 "
+                 f"times: {a1}, {a2}, {routes}")
+
+    # fixed resume of phase 4's last.ckpt for one more epoch (4 steps)
+    last = os.path.join(fixed_run, "last.ckpt")
+    ckpt = load_checkpoint_file(last)
+
+    def same_state(ctx, epoch, want_epoch, ck, emas=4):
+        state = ctx.state
+        bad = [n for n, p in state.params.items() if not torch.equal(p.detach().cpu(),
+                                                                      ck["state_dict"][n])]
+        bad += [f"ema{i}.{n}" for i in range(emas) for n, t in state.ema_params[i].items()
+                if not torch.equal(t.cpu(), ck[f"state_dict_ema_{i}"][n])]
+        saved, got = ck["optimizer"]["state"], state.optimizer.state_dict()["state"]
+        bad += [f"opt{i}.{k}" for i in saved for k in ("exp_avg", "exp_avg_sq")
+                if not torch.equal(got[i][k].cpu(), saved[i][k])]
+        say(f"phase 9 resumed at epoch {epoch} (checkpoint epoch {ck['epoch']}), step "
+            f"{state.step}: {len(state.params)} parameters, {emas} EMA trees and "
+            f"{2 * len(saved)} Adam moments compared, {len(bad)} differ")
+        if epoch != want_epoch or state.step != ck["step"] or bad:
+            fail(f"the resumed state is not the checkpoint's: epoch {epoch}, {bad[:5]}")
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    restore = _first_epoch_hook(lambda ctx, e: same_state(ctx, e, ckpt["epoch"] + 1, ckpt))
+    argv = fixed_argv + ["--epochs", "2", "--resume", last, "--output", out]
+    t0 = time.time()
+    try:
+        _, a1, a2, _ = _counted(torch, lambda: fixed_main.main(argv))
+    finally:
+        restore()
+    add(a1, a2)
+    log = open(glob.glob(os.path.join(out, "train", "*", "log.txt"))[0]).read()
+    losses = [float(v) for v in re.findall(r"Train: 1 \[\s*\d+/\d+\]\s+Loss: (\S+)", log)]
+    say(f"phase 9 resume: python -m autoprog_tpu_torch.main ... --epochs 2 --resume "
+        f"last.ckpt ({time.time() - t0:.1f} s incl. two eval passes): losses {losses}; "
+        f"launches K1 {a1}, K2 {a2}")
+    if len(losses) != 4 or not all(math.isfinite(v) for v in losses):
+        fail(f"expected 4 finite losses after the resume, got {losses}")
+    if a1["bwd"] != 56 or a1["fwd"] < 56 or a2["bwd"] != 16 or a2["fwd"] < 16:
+        fail(f"the resumed steps did not launch K1 / K2 as phase 4's: {a1}, {a2}")
+    del ckpt
+
+    # progressive resume of phase 5's epoch-2 checkpoint (after the growth to
+    # r=224, l=18): one more epoch of 5 steps at that stage
+    snap = os.path.join(prog_run, "checkpoint-2.ckpt")
+    pk = load_checkpoint_file(snap)
+    out = tempfile.mkdtemp(prefix="chip_smoke_prog_resume_")
+    restore = _first_epoch_hook(lambda ctx, e: same_state(ctx, e, 3, pk))
+    t0 = time.time()
+    try:
+        _, a1, a2, _ = _counted(torch, lambda: main_prog.main(prog_argv + ["--resume", snap,
+                                                                   "--output", out]))
+    finally:
+        restore()
+    add(a1, a2)
+    ctx = main_prog.LAST_CTX
+    hist = ctx.stage_history
+    final = load_checkpoint_file(glob.glob(os.path.join(out, "train", "*", "last.ckpt"))[0])
+    say(f"phase 9 progressive resume of checkpoint-2.ckpt (arch {pk['arch']}, stage "
+        f"{pk['stage_info']}, step {pk['step']}) ({time.time() - t0:.1f} s): history "
+        f"{[(h['epoch'], h['r'], h['l']) for h in hist]}, arch {ctx.mdef.name}, final step "
+        f"{final['step']}; launches K1 {a1}, K2 {a2}")
+    if pk["arch"] != "volo_h12_l18" or ctx.mdef.name != pk["arch"] or \
+            [(h["epoch"], h["r"], h["l"]) for h in hist] != [(3, 224, 18)]:
+        fail("the progressive resume did not rebuild the recorded stage")
+    # the step restarts with the stage's fresh state (as the JAX package's):
+    # one epoch of 5 steps after the growth at epoch 2, then 5 more
+    if pk["step"] != 5 or final["step"] != 10:
+        fail(f"steps {pk['step']} -> {final['step']}, not 5 -> 10")
+    if a1["bwd"] != 70 or a2["bwd"] != 20:
+        fail(f"the resumed steps did not launch K1 14 and K2 4 times each: {a1}, {a2}")
+    del pk
+
+    # finetune phase 4's checkpoint into 100 classes, 2 steps
+    src = load_checkpoint_file(best)["state_dict"]
+    heads = ("head.weight", "head.bias", "aux_head.weight", "aux_head.bias")
+
+    def finetuned(ctx, epoch):
+        params = ctx.state.params
+        bad = [n for n, p in params.items()
+               if n not in heads and not torch.equal(p.detach().cpu(), src[n])]
+        shapes = {n: tuple(params[n].shape) for n in heads}
+        say(f"phase 9 finetune: {len(params) - len(heads)} parameters compared with the "
+            f"checkpoint, {len(bad)} differ; heads re-initialised at {shapes}")
+        if bad or shapes["head.weight"] != (100, 384) or shapes["aux_head.bias"] != (100,):
+            fail(f"the finetuned model is not the checkpoint's with new heads: {bad[:5]}")
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_finetune_")
+    argv = ["synthetic://", "--model", "volo_d1", "--img-size", "224", "-b", "64",
+            "--num-classes", "100", "--token-label", "--token-label-data", "synthetic",
+            "--epochs", "1", "--warmup-epochs", "0", "--cooldown-epochs", "0", "--lr", "1e-4",
+            "--fake-data-size", "128", "--workers", "6", "--log-interval", "1",
+            "--finetune", best, "--output", out]
+    restore = _first_epoch_hook(finetuned)
+    try:
+        _, a1, a2, _ = _counted(torch, lambda: fixed_main.main(argv))
+    finally:
+        restore()
+    add(a1, a2)
+    log = open(glob.glob(os.path.join(out, "train", "*", "log.txt"))[0]).read()
+    losses = [float(v) for v in re.findall(r"Train: 0 \[\s*\d+/\d+\]\s+Loss: (\S+)", log)]
+    say(f"phase 9 finetune into 100 classes: losses {losses}; launches K1 {a1}, K2 {a2}")
+    if len(losses) != 2 or not all(math.isfinite(v) for v in losses) or a1["bwd"] != 28:
+        fail(f"expected 2 finite finetune steps through K1, got {losses}, {a1}")
+    del src
+
+    # the eval forward alone: volo_d1, b=128, 224 px, bf16, on a
+    # device-resident batch; K1 and K2 on against both off, in turns
+    torch.manual_seed(0)
+    model = create_model("volo_d1").make(num_classes=1000, dtype=torch.bfloat16).cuda()
+    x = torch.randn(batch, 224, 224, 3, device="cuda")
+    ms = {"on": [], "off": []}
+    with torch.no_grad():
+        for turn in ("on", "off", "off", "on"):
+            value = "1" if turn == "on" else "0"
+            os.environ["AUTOPROG_FUSED_ATTN"] = os.environ["AUTOPROG_FUSED_OUTLOOK"] = value
+            ms[turn].append(_time_cuda(torch, lambda: model(x, train=False), 10))
+    del os.environ["AUTOPROG_FUSED_ATTN"], os.environ["AUTOPROG_FUSED_OUTLOOK"]
+    on, off = sum(ms["on"]) / 2, sum(ms["off"]) / 2
+    say(f"phase 9 volo_d1 eval forward b={batch} 224px bf16 on {card}: K1 + K2 {on:.3f} ms "
+        f"({batch / on * 1e3:.1f} img/s; runs {ms['on']}), AUTOPROG_FUSED_ATTN=0 "
+        f"AUTOPROG_FUSED_OUTLOOK=0 {off:.3f} ms ({batch / off * 1e3:.1f} img/s; runs "
+        f"{ms['off']})")
+    del model
+    return k1, k2
+
+
 def _row(name, src, replaces, launches, err, t, key):
     lib = t.get("lib_" + key)
     return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -1102,8 +1314,8 @@ def main():
     from autoprog_tpu_torch.ops.attention import SHAPE_LAUNCHES
     from autoprog_tpu_torch.scripts.bench_k1 import SHAPES as bench_k1_shapes
     SHAPE_LAUNCHES.clear()
-    fixed, fixed_k2 = phase_trainer(torch)
-    prog_k1, prog_k2 = phase_prog_trainer(torch)
+    fixed, fixed_k2, fixed_run, fixed_argv = phase_trainer(torch)
+    prog_k1, prog_k2, prog_run, prog_argv = phase_prog_trainer(torch)
     deit_k1 = phase_deit(torch, card)
     measured = phase_measure(torch)
     by_shape = dict(SHAPE_LAUNCHES)
@@ -1113,9 +1325,11 @@ def main():
     tv = phase_mhsa_variant_times(torch, card, t)
     to, variants = phase_outlook_times(torch, card)
     phase_step_times(torch, card)
+    ck_k1, ck_k2 = phase_checkpoint(torch, card, fixed_run, fixed_argv, prog_run, prog_argv)
     pal = "autoprog_tpu/ops/outlook_pallas.py"
     att = "autoprog_tpu/ops/attention_pallas.py"
-    k1 = {side: fixed[side] + prog_k1[side] + deit_k1[side] for side in ("fwd", "bwd")}
+    k1 = {side: fixed[side] + prog_k1[side] + deit_k1[side] + ck_k1[side]
+          for side in ("fwd", "bwd")}
 
     def vrow(key, src, replaces):
         return {"name": key, "route": "cuda", "source": src, "replaces": replaces,
@@ -1142,11 +1356,11 @@ def main():
         _row("mhsa_qkv_fwd", MHSA_SRC, att + ":206", k1["fwd"], worst["fwd"], t, "fwd"),
         _row("mhsa_qkv_bwd", MHSA_SRC, att + ":228", k1["bwd"], worst["bwd"], t, "bwd"),
         {**_row("outlook_fused_fwd", OUTLOOK_SRC, pal + ":80",
-                fixed_k2["fwd"] + prog_k2["fwd"], worst_o["fwd"], to, "fwd"),
+                fixed_k2["fwd"] + prog_k2["fwd"] + ck_k2["fwd"], worst_o["fwd"], to, "fwd"),
          "ms_general": to["general_fwd"], "ms_f32": to["f32_fwd"],
          "ms_general_f32": to["f32_general_fwd"]},
         {**_row("outlook_fused_bwd", OUTLOOK_SRC, pal + ":203",
-                fixed_k2["bwd"] + prog_k2["bwd"], worst_o["bwd"], to, "bwd"),
+                fixed_k2["bwd"] + prog_k2["bwd"] + ck_k2["bwd"], worst_o["bwd"], to, "bwd"),
          "ms_general": to["general_bwd"], "ms_f32": to["f32_bwd"],
          "ms_general_f32": to["f32_general_bwd"]},
         _row("outlook_attend_hm", OUTLOOK_SRC, pal + ":237", variants["attend_hm"],

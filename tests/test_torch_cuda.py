@@ -1,7 +1,9 @@
 """GPU-only tests of autoprog_tpu_torch: the CUDA kernels (K1, the fused
 MHSA; K2, K3, K4, the fused outlook attention and its attend variants; K5,
 the MHSA on separate q, k, v; the schedule variants S1 and S2 of K1)
-against their plain PyTorch twins, on the card. They skip without a CUDA device (a CUDA
+against their plain PyTorch twins, on the card; and the checkpoint path
+through them: the validator equals the trainer's eval row, a resume restores
+the state bit for bit. They skip without a CUDA device (a CUDA
 kernel has no CPU mode); the CPU tests hold the twins against the JAX
 package.
 
@@ -596,3 +598,71 @@ def test_deit_small_forward_through_k1_matches_unfused(cuda_device, monkeypatch)
         fused = model(x, train=False)
     assert A.LAUNCHES["fwd"] - before == 12
     assert (fused - plain).abs().max().item() <= 1e-3
+
+
+CARD_RUN = ["synthetic://", "--model", "volo_h2_l4", "--num-classes", "8", "--img-size", "64",
+            "-b", "16", "--epochs", "1", "--warmup-epochs", "0", "--cooldown-epochs", "0",
+            "--lr", "1e-3", "--workers", "0", "--fake-data-size", "32", "--token-label",
+            "--token-label-data", "synthetic", "--model-ema", "--model-ema-decay", "0.9",
+            "0.99"]
+
+
+@pytest.fixture
+def card_run(cuda_device, tmp_path, monkeypatch):
+    """A one-epoch volo_h2_l4 run of the port's trainer on the card (bf16,
+    K1 and K2 on): its run directory."""
+    import glob
+    from autoprog_tpu_torch.main import main
+    monkeypatch.delenv("AUTOPROG_TORCH_DEVICE", raising=False)
+    monkeypatch.delenv("AUTOPROG_FUSED_ATTN", raising=False)
+    monkeypatch.delenv("AUTOPROG_FUSED_OUTLOOK", raising=False)
+    main(CARD_RUN + ["--output", str(tmp_path)])
+    return glob.glob(str(tmp_path / "train" / "*"))[0]
+
+
+@pytest.mark.parametrize("ema", [None, 1])
+def test_validate_equals_the_trainer_on_the_card(card_run, ema):
+    """The validator's metrics on the trainer's checkpoint equal the
+    trainer's eval row (the same eval_step, batches and order), and its
+    forward went through K1 and K2."""
+    import csv
+    import os
+    from autoprog_tpu_torch import validate
+    from autoprog_tpu_torch.ops import outlook_fused as O
+    with open(os.path.join(card_run, "summary.csv")) as f:
+        row = list(csv.DictReader(f))[-1]
+    before = (A.LAUNCHES["fwd"], O.LAUNCHES["fwd"])
+    flags = [] if ema is None else ["--use-ema", "--ema-idx", str(ema)]
+    got = validate.main(["synthetic://", "--checkpoint", os.path.join(card_run, "last.ckpt"),
+                         "--num-classes", "8", "--img-size", "64", "-b", "16", "--workers", "0",
+                         "--fake-data-size", "64"] + flags)[0]
+    suffix = "" if ema is None else "_EMA_0.99"
+    for key in ("top1", "top5", "loss"):
+        assert got[key] == float(row[f"eval_{key}{suffix}"]), key
+    # 4 batches x 2 transformer layers (K1) and 2 outlookers (K2)
+    assert (A.LAUNCHES["fwd"] - before[0], O.LAUNCHES["fwd"] - before[1]) == (8, 8)
+
+
+def test_resume_restores_the_state_bit_for_bit_on_the_card(card_run):
+    import os
+    from autoprog_tpu_torch import engine
+    from autoprog_tpu_torch.config import parse_args
+    from autoprog_tpu_torch.train.checkpoint import load_checkpoint_file
+    ckpt = load_checkpoint_file(os.path.join(card_run, "last.ckpt"))
+    args, text = parse_args(CARD_RUN, prog=False)
+    args.token_label_size = 4
+    ctx = engine.setup(args, text)
+    assert engine.resume_from(ctx, ckpt) == 1
+    state = ctx.state
+    assert state.step == ckpt["step"] == 2
+    for n, p in state.params.items():
+        assert p.is_cuda and torch.equal(p.detach().cpu(), ckpt["state_dict"][n]), n
+        for i in range(2):
+            assert torch.equal(state.ema_params[i][n].cpu(), ckpt[f"state_dict_ema_{i}"][n])
+    saved = ckpt["optimizer"]["state"]
+    got = state.optimizer.state_dict()["state"]
+    assert set(got) == set(saved)
+    for i in saved:
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(got[i][key].cpu(), saved[i][key]), (i, key)
+        assert float(got[i]["step"]) == float(saved[i]["step"]) == 2.0

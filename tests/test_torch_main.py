@@ -10,6 +10,7 @@ import csv
 import glob
 import math
 import os
+import re
 import subprocess
 import sys
 
@@ -17,6 +18,17 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Equal bits from two CPU runs at different times need a fixed
+    reduction order: one intra-op thread (MKL hands a loaded machine's
+    process fewer threads than asked, and so another order)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _env(**extra):
@@ -60,7 +72,8 @@ def test_import_leaves_jax_out():
             "                                               'autoprog_tpu_torch.')]\n"
             "assert len(names) > 30 and 'autoprog_tpu_torch.main_prog' in names, names\n"
             "for new in ('bench', 'models.vit', 'scripts.attn_variants',\n"
-            "            'scripts.bench_attn', 'scripts.bench_attn_x', 'scripts.timing'):\n"
+            "            'scripts.bench_attn', 'scripts.bench_attn_x', 'scripts.timing',\n"
+            "            'validate', 'finetune', 'train.flax_msgpack'):\n"
             "    assert 'autoprog_tpu_torch.' + new in names, new\n"
             "for name in names:\n"
             "    importlib.import_module(name)\n"
@@ -68,7 +81,7 @@ def test_import_leaves_jax_out():
             "create_model('volo_d1').make(num_classes=10)\n"
             "create_model('deit_small_distilled_patch16_224').make(num_classes=10)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-            "       ('jax', 'jaxlib', 'flax', 'optax', 'autoprog_tpu')]\n"
+            "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'autoprog_tpu')]\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=120)
@@ -96,12 +109,73 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--resume", "x.ckpt"], ["--finetune", "x.ckpt"], ["--initial-checkpoint", "x"],
     ["--model-parallel", "2"], ["--remat"], ["--model-ema-bf16"], ["--adam-mu-bf16"],
     ["--uint8-pipe"], ["--aug-splits", "3"], ["--profile", "trace"],
-    ["--dataset", "tfrecord"],
+    ["--dataset", "tfds/imagenet2012"], ["--dataset", "hfds/imagenet-1k"],
 ])
 def test_main_refuses_flags_that_are_not_ported(flags):
     from autoprog_tpu_torch.main import main
     with pytest.raises(NotImplementedError, match="not ported"):
         main(["synthetic://", "--model", "volo_h2_l4"] + flags)
+
+
+TINY = ["--model", "deit_h2_l2", "--num-classes", "8", "--img-size", "32", "-b", "8",
+        "--warmup-epochs", "0", "--cooldown-epochs", "0", "--workers", "0",
+        "--fake-data-size", "16", "--no-bf16"]
+
+
+@pytest.fixture(scope="module")
+def tiny_run(tmp_path_factory):
+    """A one-epoch DeiT run of the port: its run directory."""
+    from autoprog_tpu_torch.main import main
+    out = tmp_path_factory.mktemp("tiny")
+    os.environ["AUTOPROG_TORCH_DEVICE"] = "cpu"
+    try:
+        main(["synthetic://"] + TINY + ["--epochs", "1", "--output", str(out)])
+    finally:
+        del os.environ["AUTOPROG_TORCH_DEVICE"]
+    return glob.glob(str(out / "train" / "*"))[0]
+
+
+@pytest.mark.parametrize("flag", ["--resume", "--finetune", "--initial-checkpoint",
+                                  "--dataset tfrecord"])
+def test_main_runs_the_flags_it_used_to_refuse(flag, tiny_run, tmp_path, monkeypatch):
+    """Each runs: a resume goes on at the next epoch after one eval pass;
+    --finetune into 10 classes re-initialises the head; an initial
+    checkpoint of the same model evaluates as its source run did;
+    --dataset tfrecord trains on TFRecord shards."""
+    from autoprog_tpu_torch.main import main
+    from autoprog_tpu_torch.train.checkpoint import load_checkpoint_file
+    from tfrecord_writer import write_tfrecords
+    monkeypatch.setenv("AUTOPROG_TORCH_DEVICE", "cpu")
+    ckpt = os.path.join(tiny_run, "last.ckpt")
+    data, argv = ["synthetic://"], list(TINY) + ["--epochs", "1"]
+    if flag == "--resume":
+        argv = TINY + ["--epochs", "2", "--resume", ckpt]
+    elif flag == "--finetune":
+        argv += ["--finetune", ckpt, "--num-classes", "10"]
+    elif flag == "--initial-checkpoint":
+        argv += ["--initial-checkpoint", ckpt]
+    else:
+        data = [str(tmp_path / "records")]
+        for split in ("train", "validation"):
+            write_tfrecords(data[0], split)
+        argv += ["--dataset", "tfrecord"]
+    assert main(data + argv + ["--output", str(tmp_path / "out")]) is not None
+    run = glob.glob(str(tmp_path / "out" / "train" / "*"))[0]
+    log = open(os.path.join(run, "log.txt")).read()
+    tests = re.findall(r"Test: loss (\S+)  Acc@1 (\S+)", log)
+    last = load_checkpoint_file(os.path.join(run, "last.ckpt"))
+    with open(os.path.join(tiny_run, "summary.csv")) as f:
+        src = next(csv.DictReader(f))
+    if flag == "--resume":
+        assert len(tests) == 2 and last["epoch"] == 1 and last["step"] == 4
+        assert tests[0] == ("%.4f" % float(src["eval_loss"]), "%.4f" % float(src["eval_top1"]))
+    elif flag == "--finetune":
+        assert len(tests) == 2 and "dropping head.weight" in log
+        assert last["state_dict"]["head.weight"].shape == (10, 128)
+    elif flag == "--initial-checkpoint":
+        assert len(tests) == 2 and "dropping" not in log
+        assert tests[0] == ("%.4f" % float(src["eval_loss"]), "%.4f" % float(src["eval_top1"]))
+    else:
+        assert len(tests) == 1 and last["step"] == 2

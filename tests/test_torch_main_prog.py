@@ -8,12 +8,14 @@ package's.
   * `--auto-grow`: the search runs, decides, shrinks or grows and trains on.
     The decision depends on measured step times, so it is held to the
     candidate window, not to the JAX run;
+  * --resume, --finetune and --initial-checkpoint run;
   * one train step after a "clone" growth gives the same loss in both
     packages on converted parameters (rel 1e-5, the tolerance of
     `tests/test_torch_train_step.py`: the same f32 formulas in another order).
 """
 
 import glob
+import os
 import types
 
 import jax
@@ -27,6 +29,7 @@ from autoprog_tpu.losses import build_train_loss as jax_build_train_loss
 from autoprog_tpu.prog import growth as jgrowth
 from autoprog_tpu.registry import create_model as jax_create_model
 from autoprog_tpu.train import optim as joptim
+from autoprog_tpu.train.checkpoint import load_checkpoint_file as jax_load_checkpoint_file
 from autoprog_tpu.train.state import TrainState as JaxTrainState
 from autoprog_tpu.train.steps import StepBuilder as JaxStepBuilder
 from autoprog_tpu_torch import create_model, main_prog
@@ -98,16 +101,50 @@ def test_manual_growth_walks_the_jax_stage_history(cpu_port, tmp_path):
     ckpt = torch.load(last, weights_only=False)
     assert ckpt["arch"] == "volo_h2_l4"
     assert ckpt["stage_info"]["l"] == 4 and ckpt["stage_info"]["r"] == 64
-    assert ckpt["step"] == 16                       # 4 epochs x 4 steps, carried on
+    # the step count restarts with the stage's fresh state, as in the JAX run
+    jlast = glob.glob(str(tmp_path / "jax" / "train" / "*" / "last.ckpt"))[0]
+    assert ckpt["step"] == int(jax_load_checkpoint_file(jlast)["step"]) == 8
     assert set(ckpt["state_dict_ema_0"]) == set(ckpt["state_dict"])
     assert any(k.startswith("s1b1.") for k in ckpt["state_dict"])
 
 
-@pytest.mark.parametrize("flags", [["--resume", "x.ckpt"], ["--finetune", "x.ckpt"],
-                                   ["--initial-checkpoint", "x"]])
-def test_main_prog_refuses_flags_that_are_not_ported(flags):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main_prog.main(["synthetic://", "--model", "volo_h2_l4"] + flags)
+PROG = ["synthetic://", "--model", "deit_h2_l2", "--num-classes", "8", "--img-size", "32",
+        "-b", "8", "--epochs", "2", "--warmup-epochs", "0", "--cooldown-epochs", "0",
+        "--workers", "0", "--fake-data-size", "16", "--no-bf16", "--num-stages", "2",
+        "--l-scale", "0.5", "--drop-path", "0.0", "--load-with-clone"]
+
+
+@pytest.fixture(scope="module")
+def prog_run(tmp_path_factory):
+    """A progressive DeiT run of the port (depth 1 at epoch 0, 2 at epoch 1)."""
+    out = tmp_path_factory.mktemp("prog")
+    os.environ["AUTOPROG_TORCH_DEVICE"] = "cpu"
+    try:
+        main_prog.main(PROG + ["--output", str(out)])
+    finally:
+        del os.environ["AUTOPROG_TORCH_DEVICE"]
+    return glob.glob(str(out / "train" / "*"))[0]
+
+
+@pytest.mark.parametrize("flag", ["--resume", "--finetune", "--initial-checkpoint"])
+def test_main_prog_runs_the_flags_it_used_to_refuse(flag, prog_run, cpu_port, tmp_path):
+    """--resume from epoch 0 rebuilds the stage-0 arch and grows at epoch 1;
+    --finetune / --initial-checkpoint load the depth-2 checkpoint into the
+    stage-0 (depth 1) model by name before training."""
+    snap = f"{prog_run}/checkpoint-0.ckpt"
+    extra = {"--resume": ["--resume", snap], "--finetune": ["--finetune", snap],
+             "--initial-checkpoint": ["--initial-checkpoint", f"{prog_run}/last.ckpt"]}[flag]
+    assert main_prog.main(PROG + extra + ["--output", str(tmp_path)]) is not None
+    hist = main_prog.LAST_CTX.stage_history
+    log = open(glob.glob(str(tmp_path / "train" / "*" / "log.txt"))[0]).read()
+    tests = [ln for ln in log.splitlines() if "Test: loss" in ln]
+    if flag == "--resume":
+        assert [(e["epoch"], e["l"]) for e in hist] == [(1, 1), (1, 2)]
+        assert len(tests) == 2            # after the resume, after epoch 1
+    else:
+        assert [(e["epoch"], e["l"]) for e in hist] == [(0, 1), (0, 1), (1, 2)]
+        assert len(tests) == 3            # after the load, after each epoch
+        assert "shape mismatch" not in log
 
 
 def test_variant_aliases_are_the_jax_ones():
