@@ -19,7 +19,7 @@ The fused `qkv` out-axis keeps its (3, heads, d) order, which K1 relies on.
 `jax_payload_to_torch` turns a whole checkpoint of the JAX package (the
 tree `autoprog_tpu/train/checkpoint.py:build_payload` writes) into the
 port's payload: every tree through `flax_to_torch`, and the optax state
-through `optax_to_adamw`.
+through `optax_to_torch_state`.
 """
 
 from __future__ import annotations
@@ -42,7 +42,8 @@ def _leaf(name: str, value) -> torch.Tensor:
             a = a.transpose(3, 2, 0, 1)
         else:
             raise ValueError(f"kernel of rank {a.ndim} has no torch layout")
-    return torch.tensor(a.astype(np.float32) if a.dtype.kind == "f" else a)
+    floating = a.dtype.kind == "f" or a.dtype.name == "bfloat16"
+    return torch.tensor(a.astype(np.float32) if floating else a)
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str, out: Dict[str, torch.Tensor]):
@@ -69,39 +70,44 @@ def flax_to_torch(params: Mapping[str, Any],
 ADAM_KEYS = ("count", "mu", "nu")
 
 
-def _adam_states(tree: Any, out: List[Mapping[str, Any]]) -> None:
+def _opt_states(tree: Any, out: List[Mapping[str, Any]]) -> None:
     if not isinstance(tree, Mapping):
         return
-    if all(k in tree for k in ADAM_KEYS):
+    if all(k in tree for k in ADAM_KEYS) or set(tree) == {"trace"}:
         out.append(tree)
         return
     for v in tree.values():
-        _adam_states(v, out)
+        _opt_states(v, out)
 
 
-def optax_to_adamw(opt_state: Mapping[str, Any]) -> Dict[str, Any]:
+def optax_to_torch_state(opt_state: Mapping[str, Any]) -> Dict[str, Any]:
     """The JAX package's optax chain state (`autoprog_tpu/train/optim.py`:
-    clip -> scale_by_adam -> masked add_decayed_weights, serialised as
-    {"0": ..., "1": ...}) as the port's Adam state keyed by parameter name:
-    {"count": int, "exp_avg": {name: mu}, "exp_avg_sq": {name: nu}}. The
+    clip -> scale_by_adam or trace -> masked add_decayed_weights, serialised
+    as {"0": ..., "1": ...}) as the port's optimizer state keyed by
+    parameter name: {"count": int, "exp_avg": {name: mu}, "exp_avg_sq":
+    {name: nu}} for Adam, {"momentum_buffer": {name: trace}} for the
+    Nesterov trace of --opt sgd / momentum. Kernels are transposed like the
+    weights; every float leaf comes as f32 (a bf16 mu exactly), and
+    `train/checkpoint.py` casts it to the optimizer's own state dtype. The
     chain is walked, so clip, mask and empty states anywhere in it are
-    passed over; it must hold exactly one scale_by_adam state."""
+    passed over; it must hold exactly one scale_by_adam or trace state."""
     found: List[Mapping[str, Any]] = []
-    _adam_states(opt_state, found)
+    _opt_states(opt_state, found)
     if len(found) != 1:
         raise NotImplementedError(
-            f"the optimizer state holds {len(found)} scale_by_adam states; the port "
-            "restores the state of --opt adamw / adam only")
-    adam = found[0]
-    return {"count": int(np.asarray(adam["count"])),
-            "exp_avg": flax_to_torch(adam["mu"]),
-            "exp_avg_sq": flax_to_torch(adam["nu"])}
+            f"the optimizer state holds {len(found)} scale_by_adam / trace states; the "
+            "port restores the state of --opt adamw, adam, sgd and momentum only")
+    state = found[0]
+    if "trace" in state:
+        return {"momentum_buffer": flax_to_torch(state["trace"])}
+    return {"count": int(np.asarray(state["count"])), "exp_avg": flax_to_torch(state["mu"]),
+            "exp_avg_sq": flax_to_torch(state["nu"])}
 
 
 def jax_payload_to_torch(payload: Mapping[str, Any]) -> Dict[str, Any]:
     """A JAX checkpoint payload as the port's: `state_dict`, `batch_stats`
     and every `state_dict_ema_{i}` as state_dicts, `optimizer` as
-    `optax_to_adamw`'s dict where the chain holds an Adam state (else left
+    `optax_to_torch_state`'s dict where the chain holds an Adam or trace state (else left
     as it is, for `restore_state` to refuse), the rest (arch, stage_info,
     step, epoch, metric, args_text, lr_schedule) as it is."""
     out = dict(payload)
@@ -111,7 +117,7 @@ def jax_payload_to_torch(payload: Mapping[str, Any]) -> Dict[str, Any]:
     out["batch_stats"] = flax_to_torch(payload.get("batch_stats") or {})
     if "optimizer" in payload:
         try:
-            out["optimizer"] = optax_to_adamw(payload["optimizer"])
+            out["optimizer"] = optax_to_torch_state(payload["optimizer"])
         except NotImplementedError:
             pass
     return out

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -29,6 +30,7 @@ from autoprog_tpu_torch.config import resolve_data_config
 from autoprog_tpu_torch.data.dataset import create_dataset
 from autoprog_tpu_torch.data.loader import Loader, create_loader, pad_eval_batch
 from autoprog_tpu_torch.data.mixup import Mixup
+from autoprog_tpu_torch.data.transforms import TrainTransform
 from autoprog_tpu_torch.utils.meters import AverageMeter
 from autoprog_tpu_torch.losses import build_train_loss
 from autoprog_tpu_torch.platform import default_device
@@ -65,7 +67,8 @@ class TrainContext:
 def model_kwargs(args, dp: float, dtype) -> Dict[str, Any]:
     kw = dict(num_classes=args.num_classes or 1000, img_size=(args.img_size or 224),
               drop_rate=args.drop, drop_path_rate=dp, dtype=dtype,
-              mix_token=bool(args.token_label), return_dense=bool(args.token_label))
+              mix_token=bool(args.token_label), return_dense=bool(args.token_label),
+              remat=getattr(args, "remat", ""))
     # --bn-momentum is the torch convention (new = (1-m)*old + m*batch);
     # the model's BatchNorm takes Flax's complement
     if getattr(args, "bn_momentum", None) is not None:
@@ -84,12 +87,16 @@ def init_model_state(ctx: TrainContext, model_name: str, dp: float, seed: int) -
     model = mdef.make(**model_kwargs(args, dp, ctx.compute_dtype())).to(ctx.device)
     optimizer = create_optimizer(args, model)
     ema_decays = ctx.ema_decays if args.model_ema else ()
-    ctx.state = TrainState.create(model=model, optimizer=optimizer, ema_decays=ema_decays)
+    ema_dtype = torch.bfloat16 if getattr(args, "model_ema_bf16", False) else None
+    ctx.state = TrainState.create(model=model, optimizer=optimizer, ema_decays=ema_decays,
+                                  ema_dtype=ema_dtype)
     ctx.sb = StepBuilder(
         train_loss=ctx.train_loss, ema_decays=ema_decays,
         num_classes=args.num_classes or 1000, smoothing=args.smoothing,
         token_label=args.token_label, has_token_label_data=bool(args.token_label_data),
-        grad_clip=create_grad_clip(args), device=ctx.device, seed=seed)
+        grad_clip=create_grad_clip(args), device=ctx.device, seed=seed,
+        norm_mean=ctx.data_config["mean"], norm_std=ctx.data_config["std"],
+        re_count=getattr(args, "recount", 1))
     ctx.mdef = mdef
     n = sum(p.numel() for p in model.parameters())
     _logger.info("Model %s created, param count: %d", model_name, n)
@@ -132,7 +139,7 @@ def make_train_loader(ctx: TrainContext, *, aa: str, re_prob: float, resize,
                   switch_prob=args.mixup_switch_prob, label_smoothing=args.smoothing,
                   num_classes=args.num_classes, mode=args.mixup_mode,
                   token_label=bool(args.token_label_data)) if mixup_active else None
-    return create_loader(
+    loader = create_loader(
         ds, input_size=ctx.data_config["input_size"][-1],
         batch_size=batch_size or args.batch_size, is_training=True, re_prob=re_prob,
         re_mode=args.remode, re_count=args.recount, scale=resize, ratio=args.ratio,
@@ -140,6 +147,22 @@ def make_train_loader(ctx: TrainContext, *, aa: str, re_prob: float, resize,
         auto_augment=aa, interpolation=args.train_interpolation,
         mean=ctx.data_config["mean"], std=ctx.data_config["std"],
         num_workers=args.workers, mixup=mixup, seed=args.seed, no_aug=args.no_aug)
+    uint8 = getattr(args, "uint8_pipe", False)
+    if uint8:
+        # uint8 to the device; normalise and random-erase in the step
+        loader.transform.emit_uint8 = True
+        loader.transform.re_prob = 0.0
+    if getattr(args, "aug_splits", 0) > 1:
+        loader.aug_splits = args.aug_splits
+        loader.clean_transform = TrainTransform(
+            size=ctx.data_config["input_size"][-1], scale=tuple(resize),
+            ratio=tuple(args.ratio), hflip=args.hflip, vflip=args.vflip,
+            interpolation=args.train_interpolation, mean=ctx.data_config["mean"],
+            std=ctx.data_config["std"])
+        # both splits emit one dtype: a float clean split stacked with
+        # uint8 aug splits would skip the in-step normalisation
+        loader.clean_transform.emit_uint8 = uint8
+    return loader
 
 
 def make_eval_loader(ctx: TrainContext) -> Loader:
@@ -149,12 +172,14 @@ def make_eval_loader(ctx: TrainContext) -> Loader:
                         fake_size=max(args.fake_data_size // 4, 64),
                         image_size=ctx.data_config["input_size"][-1], seed=args.seed,
                         dataset_size=getattr(args, "dataset_size", 0))
-    return create_loader(
+    loader = create_loader(
         ds, input_size=ctx.data_config["input_size"][-1],
         batch_size=args.validation_batch_size_multiplier * args.batch_size,
         is_training=False, crop_pct=ctx.data_config["crop_pct"],
         interpolation=ctx.data_config["interpolation"], mean=ctx.data_config["mean"],
         std=ctx.data_config["std"], num_workers=args.workers)
+    loader.transform.emit_uint8 = getattr(args, "uint8_pipe", False)
+    return loader
 
 
 def make_search_loader(ctx: TrainContext) -> Loader:
@@ -186,11 +211,57 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, t
 # --------------------------------------------------------------- epoch loops
 
 
+def device_re_prob(args, re_prob: float) -> float:
+    """The random-erase probability of the step: the stage's under
+    `--uint8-pipe` (the loader then erases nothing), else 0."""
+    return re_prob if getattr(args, "uint8_pipe", False) else 0.0
+
+
+class _Profile:
+    """`--profile DIR`: a `torch.profiler` trace (CPU and, on a card, CUDA
+    activity) of the steps of epoch 0 from batch 1 (past the first step's
+    warm-up) to batch min(profile_steps, nb - 2), as the JAX package's
+    `jax.profiler` trace; written to DIR as a Chrome trace."""
+
+    def __init__(self, args, device: torch.device, epoch: int, nb: int):
+        self.dir = getattr(args, "profile", "") if epoch == 0 else ""
+        self.stop_at = min(getattr(args, "profile_steps", 10), max(nb - 2, 1))
+        self.device = device
+        self.prof = None
+
+    def before(self, batch_idx: int) -> None:
+        if self.dir and batch_idx == 1:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+
+    def after(self, batch_idx: int) -> None:
+        if self.prof is not None and batch_idx == self.stop_at:
+            self.close()
+
+    def close(self) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, f"trace-{os.getpid()}-{int(time.time())}.json")
+        self.prof.export_chrome_trace(path)
+        self.prof = None
+        _logger.info("profiler trace written to %s", path)
+
+
 def train_one_epoch(ctx: TrainContext, epoch: int, loader: Loader, *, r: int,
                     keep=None, splits: int = 1,
-                    epoch_time_m: Optional[AverageMeter] = None) -> Dict[str, float]:
-    """One epoch of the hot loop."""
+                    epoch_time_m: Optional[AverageMeter] = None,
+                    re_prob: float = 0.0) -> Dict[str, float]:
+    """One epoch of the hot loop; `re_prob` is the stage's random-erase
+    probability (applied in the step under `--uint8-pipe`)."""
     args = ctx.args
+    device_re = device_re_prob(args, re_prob)
     lr = ctx.schedule.fn(epoch)
     loader.set_epoch(epoch)
     if args.mixup_off_epoch and epoch >= args.mixup_off_epoch and loader.mixup is not None:
@@ -201,29 +272,35 @@ def train_one_epoch(ctx: TrainContext, epoch: int, loader: Loader, *, r: int,
     nb = len(loader)
     end = epoch_start = time.time()
     last_log_idx, last_log_t = 0, end
-    for batch_idx, batch in enumerate(loader):
-        data_time.update(time.time() - end)
-        metrics = ctx.sb.train_step(ctx.state, to_device(batch, ctx.device), lr,
-                                    r=r, keep=keep, splits=splits)
-        loss_sum = metrics["loss"] if loss_sum is None else loss_sum + metrics["loss"]
-        n_steps += 1
-        if batch_idx % args.log_interval == 0 or batch_idx == nb - 1:
-            loss = float(metrics["loss"])               # host sync
-            now = time.time()
-            steps = batch_idx - last_log_idx
-            rate = (batch["label"].shape[0] * steps / max(now - last_log_t, 1e-9)
-                    if steps else 0.0)
-            _logger.info("Train: %d [%4d/%d]  Loss: %.4f  LR: %.3e  %.1f img/s  "
-                         "Data: %.3fs", epoch, batch_idx, nb, loss, lr, rate,
-                         data_time.avg)
-            last_log_idx, last_log_t = batch_idx, now
-            if args.save_images and ctx.output_dir and batch_idx == 0:
-                _save_image_grid(batch["image"], f"{ctx.output_dir}/train-batch-{epoch}.jpg",
-                                 ctx.data_config)
-            if ctx.saver is not None and args.recovery_interval and \
-                    (batch_idx + 1) % args.recovery_interval == 0:
-                ctx.saver.save_recovery(ckpt_payload(ctx, {}), epoch, batch_idx)
-        end = time.time()
+    profile = _Profile(args, ctx.device, epoch, nb)
+    try:
+        for batch_idx, batch in enumerate(loader):
+            profile.before(batch_idx)
+            data_time.update(time.time() - end)
+            metrics = ctx.sb.train_step(ctx.state, to_device(batch, ctx.device), lr,
+                                        r=r, keep=keep, splits=splits, re_prob=device_re)
+            loss_sum = metrics["loss"] if loss_sum is None else loss_sum + metrics["loss"]
+            n_steps += 1
+            profile.after(batch_idx)
+            if batch_idx % args.log_interval == 0 or batch_idx == nb - 1:
+                loss = float(metrics["loss"])               # host sync
+                now = time.time()
+                steps = batch_idx - last_log_idx
+                rate = (batch["label"].shape[0] * steps / max(now - last_log_t, 1e-9)
+                        if steps else 0.0)
+                _logger.info("Train: %d [%4d/%d]  Loss: %.4f  LR: %.3e  %.1f img/s  "
+                             "Data: %.3fs", epoch, batch_idx, nb, loss, lr, rate,
+                             data_time.avg)
+                last_log_idx, last_log_t = batch_idx, now
+                if args.save_images and ctx.output_dir and batch_idx == 0:
+                    _save_image_grid(batch["image"], f"{ctx.output_dir}/train-batch-{epoch}.jpg",
+                                     ctx.data_config)
+                if ctx.saver is not None and args.recovery_interval and \
+                        (batch_idx + 1) % args.recovery_interval == 0:
+                    ctx.saver.save_recovery(ckpt_payload(ctx, {}), epoch, batch_idx)
+            end = time.time()
+    finally:
+        profile.close()
     if epoch_time_m is not None:
         epoch_time_m.update(time.time() - epoch_start)
     return {"loss": float(loss_sum) / n_steps if n_steps else float("nan")}

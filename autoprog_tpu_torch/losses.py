@@ -6,8 +6,9 @@ cls logits: the first element where the model returns a tuple (VOLO's
 triple, the distilled DeiT's (x_cls, x_dist)). Cross-entropy runs in f32
 whatever the compute dtype. Target formats: soft rows [B, C], or the dense
 token-label map [B, C, 2+N] (slot 0 ground truth, slot 1 cls target,
-slots 2.. per-token targets). The sparse token-label targets and the JSD
-loss (`--jsd` with `--aug-splits`) are not ported yet.
+slots 2.. per-token targets), or the sparse token-label dict of
+`data/token_label.sparse_token_label_target`. `--jsd` with `--aug-splits`
+trains on the JSD consistency loss, which takes the integer labels.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from autoprog_tpu_torch.data.token_label import smooth_one_hot
 from autoprog_tpu_torch.ops.mixtoken import mix_lambda
 
 
@@ -49,18 +51,31 @@ def _split_target(target, B, N, C):
     return target[:, :, 1], target[:, :, 2:].transpose(1, 2).reshape(-1, C)
 
 
-def _check_dense(target):
-    if isinstance(target, dict):
-        raise NotImplementedError("sparse token-label targets "
-                                  "(AUTOPROG_SPARSE_TL=1) are not ported yet")
+def _sparse_aux_ce(x_aux: torch.Tensor, st: dict) -> torch.Tensor:
+    """Aux-token soft CE against a sparse target dict, equal to
+    `_soft_ce(x_aux.reshape(-1, C), dense_target)` by
+
+      sum_c -t[c] * logp[c] = -(sum_k vals_k * logp[inds_k] + u * sum_c logp[c]):
+
+    K' log-probabilities are gathered per token; no [B*N, C] target exists."""
+    B, N, C = x_aux.shape
+    x = x_aux.reshape(B * N, C).float()
+    lse = torch.logsumexp(x, dim=-1)
+    sum_logp = x.sum(-1) - C * lse
+    v = st["vals"].reshape(B * N, -1)
+    g = x.gather(-1, st["inds"].reshape(B * N, -1).long()) - lse[:, None]
+    row = (v * g).sum(-1) + st["u"].reshape(B * N) * sum_logp
+    return -row.mean()
 
 
 def token_label_cross_entropy(outputs, target, *, dense_weight: float = 0.5,
                               cls_weight: float = 1.0) -> torch.Tensor:
     """TokenLabelCrossEntropy."""
-    _check_dense(target)
     x_cls, x_aux, bbox = outputs
     B, N, C = x_aux.shape
+    if isinstance(target, dict):
+        return (cls_weight * _soft_ce(x_cls, _mix_cls_target(target["cls"], bbox, N))
+                + dense_weight * _sparse_aux_ce(x_aux, target))
     target_cls, target_aux = _split_target(target, B, N, C)
     target_cls = _mix_cls_target(target_cls, bbox, N)
     return (cls_weight * _soft_ce(x_cls, target_cls)
@@ -71,18 +86,24 @@ def token_label_gt_cross_entropy(outputs, target, *, dense_weight: float = 0.5,
                                  cls_weight: float = 1.0) -> torch.Tensor:
     """TokenLabelGTCrossEntropy: the cls target is blended with the ground
     truth at 0.9 / 0.5 depending on whether their argmaxes agree."""
-    _check_dense(target)
     x_cls, x_aux, bbox = outputs
     B, N, C = x_aux.shape
+    if isinstance(target, dict):
+        target_cls = _blend_ground_truth(target["cls"], target["gt"])
+        return (cls_weight * _soft_ce(x_cls, _mix_cls_target(target_cls, bbox, N))
+                + dense_weight * _sparse_aux_ce(x_aux, target))
     target_cls, target_aux = _split_target(target, B, N, C)
     if target.ndim != 2:
-        ground_truth = target[:, :, 0]
-        agree = ground_truth.argmax(-1) == target_cls.argmax(-1)
-        ratio = (0.9 - 0.4 * agree.float())[:, None]
-        target_cls = target_cls * ratio + ground_truth * (1.0 - ratio)
+        target_cls = _blend_ground_truth(target_cls, target[:, :, 0])
     target_cls = _mix_cls_target(target_cls, bbox, N)
     return (cls_weight * _soft_ce(x_cls, target_cls)
             + dense_weight * _soft_ce(x_aux.reshape(-1, C), target_aux))
+
+
+def _blend_ground_truth(target_cls, ground_truth):
+    agree = ground_truth.argmax(-1) == target_cls.argmax(-1)
+    ratio = (0.9 - 0.4 * agree.float())[:, None]
+    return target_cls * ratio + ground_truth * (1.0 - ratio)
 
 
 def token_label_soft_target_cross_entropy(logits, target) -> torch.Tensor:
@@ -93,10 +114,35 @@ def token_label_soft_target_cross_entropy(logits, target) -> torch.Tensor:
     return _soft_ce(logits, target)
 
 
+def jsd_cross_entropy(logits, labels, *, num_splits: int = 3, alpha: float = 12.0,
+                      smoothing: float = 0.1, num_classes=None) -> torch.Tensor:
+    """JSD consistency loss of AugMix-style aug splits (timm
+    JsdCrossEntropy): smoothed hard CE on the clean split (the first) plus
+    alpha * the mean KL(p_i || M), M the mean softmax over the splits."""
+    logits = logits.float()
+    C = num_classes or logits.shape[-1]
+    chunks = torch.chunk(logits, num_splits, dim=0)
+    target = smooth_one_hot(labels, C, smoothing)
+    clean_ce = torch.sum(-target * F.log_softmax(chunks[0], dim=-1), dim=-1).mean()
+    probs = [F.softmax(c, dim=-1) for c in chunks]
+    log_m = (sum(probs) / num_splits).clamp(1e-7, 1.0).log()
+    kl = sum(torch.sum(p * (p.clamp(1e-7, 1.0).log() - log_m), dim=-1)
+             for p in probs) / num_splits
+    return clean_ce + alpha * kl.mean()
+
+
 def build_train_loss(args):
-    """Pick the training loss from flags, as the JAX package does."""
+    """Pick the training loss from flags, as the JAX package does. The JSD
+    loss is marked `wants_int_labels` (the step passes the labels as its
+    target) and the token-label losses `supports_sparse_tl`."""
     if getattr(args, "jsd", False) and getattr(args, "aug_splits", 0) > 1:
-        raise NotImplementedError("--jsd with --aug-splits is not ported yet")
+        ns, sm, nc = args.aug_splits, args.smoothing, args.num_classes
+
+        def jsd_loss(out, labels):
+            return jsd_cross_entropy(out[0] if isinstance(out, tuple) else out, labels,
+                                     num_splits=ns, smoothing=sm, num_classes=nc)
+        jsd_loss.wants_int_labels = True
+        return jsd_loss
     if args.token_label:
         if args.token_label_size == 1:
             return lambda out, tgt: token_label_soft_target_cross_entropy(
@@ -104,6 +150,10 @@ def build_train_loss(args):
         fn = token_label_gt_cross_entropy if args.ground_truth \
             else token_label_cross_entropy
         dw, cw = args.dense_weight, args.cls_weight
-        return lambda out, tgt: fn(out, tgt, dense_weight=dw, cls_weight=cw)
+
+        def token_label_loss(out, tgt):
+            return fn(out, tgt, dense_weight=dw, cls_weight=cw)
+        token_label_loss.supports_sparse_tl = True
+        return token_label_loss
     return lambda out, tgt: soft_target_cross_entropy(
         out[0] if isinstance(out, tuple) else out, tgt)

@@ -5,8 +5,9 @@
 
 The flags are the port's own `config.py` (a copy of the JAX package's, so
 both trainers take the same command line). The device is
-`AUTOPROG_TORCH_DEVICE` (default cuda; see platform.py). Flags whose
-machinery is not ported raise NotImplementedError naming the flag.
+`AUTOPROG_TORCH_DEVICE` (default cuda; see platform.py). `--model-parallel`
+and the tfds/ and hfds/ datasets, whose machinery is not ported, raise
+NotImplementedError.
 
 `--resume` (either package's checkpoint; then `--start-epoch` overrides the
 epoch), `--finetune` and `--initial-checkpoint` are each followed by one
@@ -42,18 +43,8 @@ def check_dataset(dataset: str) -> None:
 
 def check_ported(args) -> None:
     """Refuse flags whose machinery the port does not have yet."""
-    refused = [
-        ("--model-parallel", getattr(args, "model_parallel", 1) > 1),
-        ("--remat", bool(getattr(args, "remat", ""))),
-        ("--model-ema-bf16", getattr(args, "model_ema_bf16", False)),
-        ("--adam-mu-bf16", getattr(args, "adam_mu_bf16", False)),
-        ("--uint8-pipe", getattr(args, "uint8_pipe", False)),
-        ("--aug-splits", getattr(args, "aug_splits", 0) > 1),
-        ("--profile", bool(getattr(args, "profile", ""))),
-    ]
-    for flag, hit in refused:
-        if hit:
-            raise NotImplementedError(f"{flag}: not ported to autoprog_tpu_torch yet")
+    if getattr(args, "model_parallel", 1) > 1:
+        raise NotImplementedError("--model-parallel: not ported to autoprog_tpu_torch yet")
     check_dataset(args.dataset)
 
 
@@ -111,7 +102,7 @@ def main(argv=None):
         for epoch in range(start_epoch, num_epochs):
             train_metrics = engine.train_one_epoch(
                 ctx, epoch, loader_train, r=img_size, splits=args.batch_splits,
-                epoch_time_m=epoch_time_m)
+                epoch_time_m=epoch_time_m, re_prob=args.reprob)
             eval_metrics, names = engine.evaluate_all(ctx, loader_eval)
             if hasattr(ctx.schedule, "observe"):  # plateau schedule
                 ctx.schedule.observe(max(eval_metrics[n] for n in names))

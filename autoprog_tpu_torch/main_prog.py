@@ -87,7 +87,7 @@ def auto_grow(ctx, *, search_r, search_h, search_l, current_dp, current_aa,
                 r_list=list(search_r), l_list=list(search_l),
                 cfg_strs=cfg_strs, splits=splits,
                 eval_times=1 if search_epoch == epoch else 4,
-                epoch_time_m=epoch_time_m)
+                epoch_time_m=epoch_time_m, re_prob=current_re)
         # evaluate the smallest sub-config + EMAs
         keep = elastic_keep_masks(l_min, l_min, l_max,
                                   getattr(ctx.mdef.arch, "family", "volo"))
@@ -279,7 +279,7 @@ def main(argv=None):
 
             train_metrics = engine.train_one_epoch(
                 ctx, epoch, loader_train, r=cur["r"], splits=splits,
-                epoch_time_m=epoch_time_m)
+                epoch_time_m=epoch_time_m, re_prob=cur["re"])
             eval_metrics, names = engine.evaluate_all(ctx, loader_eval)
             if hasattr(ctx.schedule, "observe"):  # plateau schedule
                 ctx.schedule.observe(max(eval_metrics[n] for n in names))

@@ -86,14 +86,15 @@ class ModelDef:
              drop_rate: float = 0.0, drop_path_rate: float = 0.0,
              attn_drop_rate: float = 0.0, dtype=torch.bfloat16,
              mix_token=None, return_dense=None, bn_momentum=None, bn_eps=None,
-             aux_fusion: str = "max") -> Union[VOLO, VisionTransformer]:
+             aux_fusion: str = "max", remat="") -> Union[VOLO, VisionTransformer]:
         a = self.arch
         if isinstance(a, DeitArch):
             return VisionTransformer(
                 embed_dim=a.embed_dim, depth=a.depth, num_heads=a.num_heads,
                 patch_size=a.patch_size, mlp_ratio=a.mlp_ratio, num_classes=num_classes,
                 distilled=a.distilled, img_size=img_size, drop_rate=drop_rate,
-                attn_drop_rate=attn_drop_rate, drop_path_rate=drop_path_rate, dtype=dtype)
+                attn_drop_rate=attn_drop_rate, drop_path_rate=drop_path_rate, dtype=dtype,
+                remat=remat)
         bn_kw = {}
         if bn_momentum is not None:
             bn_kw["bn_momentum"] = bn_momentum
@@ -108,7 +109,7 @@ class ModelDef:
                     drop_path_rate=drop_path_rate,
                     mix_token=True if mix_token is None else mix_token,
                     return_dense=True if return_dense is None else return_dense,
-                    dtype=dtype, aux_fusion=aux_fusion, **bn_kw)
+                    dtype=dtype, aux_fusion=aux_fusion, remat=remat, **bn_kw)
 
 
 def volo_variant_arch(h: int, l: int) -> VoloArch:

@@ -21,10 +21,14 @@ this port keeps because the JAX package is the reference:
 
 Randomness: DropPath and dropout take an explicit `torch.Generator` (`gen`)
 and follow Flax: keep mask ~ Bernoulli(1 - rate), x / keep where kept.
+
+`remat_call` runs an outlooker or transformer block under
+`torch.utils.checkpoint` for `--remat full | dots`.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Optional
@@ -82,6 +86,54 @@ def drop_path(x: torch.Tensor, rate: float, train: bool,
               gen: Optional[torch.Generator]) -> torch.Tensor:
     """Per-sample stochastic depth on a residual branch."""
     return dropout(x, rate, train, gen, (x.shape[0],) + (1,) * (x.ndim - 1))
+
+
+def _save_linear_outputs(ctx, op, *args, **kwargs):
+    """`--remat dots`: keep the outputs of the matmuls without batch dims
+    (the linear layers' aten.mm / aten.addmm) and recompute the rest, the
+    policy of JAX's `dots_with_no_batch_dims_saveable`."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(block: nn.Module, x: torch.Tensor, train: bool,
+               gen: Optional[torch.Generator], mode) -> torch.Tensor:
+    """`block(x, train, gen)`, rematerialised in the backward as
+    `autoprog_tpu/models/layers.py:remat_wrap` does: mode "" runs it plainly,
+    "full" (or True) keeps only the block's input, "dots" also keeps the
+    linear layers' outputs. Only where autograd records the call.
+
+    `torch.utils.checkpoint` restores the default generators for the
+    recompute, not `gen`, from which DropPath and dropout draw: the
+    recompute sets `gen` back to its state at the forward call, so that it
+    draws the same masks, and then puts it back where it was, so that the
+    next step's draws are not repeated."""
+    if not mode or not torch.is_grad_enabled():
+        return block(x, train, gen)
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+    if mode == "dots":
+        kw = {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                              _save_linear_outputs)}
+    elif mode in (True, "full"):
+        kw = {}
+    else:
+        raise ValueError(f"unknown remat mode {mode!r}")
+    at_call = None if gen is None else gen.get_state()
+    forwards = []
+
+    def run(inp):
+        if not forwards or at_call is None:
+            forwards.append(True)
+            return block(inp, train, gen)
+        now = gen.get_state()
+        gen.set_state(at_call)
+        try:
+            return block(inp, train, gen)
+        finally:
+            gen.set_state(now)
+    return checkpoint(run, x, use_reentrant=False, **kw)
 
 
 class Dense(nn.Module):

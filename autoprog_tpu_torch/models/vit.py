@@ -9,6 +9,8 @@ stock model for the progressive engine:
   * Resolution elasticity: the grid part of the pos-embed is resized
     bicubically (Keys a = -0.5, `ops/interpolate.py`) to the token grid of
     the input; the prefix tokens' embeddings are kept.
+  * `remat` ("" | "full" | "dots") recomputes the blocks in the backward
+    (`layers.remat_call`).
 
 Blocks are named `s0b{i}` so that `prog/growth.py` treats VOLO and DeiT
 alike. The distilled model returns (x_cls, x_dist) in training and the mean
@@ -29,6 +31,7 @@ from autoprog_tpu_torch.models.layers import (
     LayerNorm,
     TransformerBlock,
     dropout,
+    remat_call,
     trunc_init_,
 )
 from autoprog_tpu_torch.ops.interpolate import resize_bicubic
@@ -39,8 +42,10 @@ class VisionTransformer(nn.Module):
                  patch_size: int = 16, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  num_classes: int = 1000, distilled: bool = False, img_size: int = 224,
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
-                 drop_path_rate: float = 0.0, dtype: torch.dtype = torch.bfloat16):
+                 drop_path_rate: float = 0.0, dtype: torch.dtype = torch.bfloat16,
+                 remat=""):
         super().__init__()
+        self.remat = remat
         self.embed_dim, self.depth, self.patch_size = embed_dim, depth, patch_size
         self.distilled, self.img_size = distilled, img_size
         self.drop_rate, self.dtype = drop_rate, dtype
@@ -89,7 +94,7 @@ class VisionTransformer(nn.Module):
 
         for i in range(self.depth):
             if keep_flat[i]:
-                x = getattr(self, f"s0b{i}")(x, train, drop_gen)
+                x = remat_call(getattr(self, f"s0b{i}"), x, train, drop_gen, self.remat)
 
         x = self.norm(x)
         x_cls = self.head(x[:, 0])

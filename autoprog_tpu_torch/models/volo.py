@@ -10,7 +10,9 @@ MixToken on the embeddings in training and `cls + 0.5 * max(aux)` at eval.
     bools, `autoprog_tpu/prog/depth.py:elastic_keep_masks`); a skipped layer
     is not run. Parameters of every layer always exist.
   * `forward(..., bbox=...)` takes an injected MixToken box; without one the
-    box is drawn from `mix_gen` (a CPU `torch.Generator`).
+    box is drawn from `mix_gen` (a CPU `torch.Generator`), outside the
+    blocks that `remat` ("" | "full" | "dots", `layers.remat_call`)
+    recomputes in the backward.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from autoprog_tpu_torch.models.layers import (
     PatchEmbed,
     TransformerBlock,
     dropout,
+    remat_call,
     trunc_init_,
 )
 from autoprog_tpu_torch.ops.interpolate import resize_bicubic
@@ -49,8 +52,9 @@ class VOLO(nn.Module):
                  mix_token: bool = True, pooling_scale: int = 2, out_kernel: int = 3,
                  out_stride: int = 2, out_padding: int = 1, aux_fusion: str = "max",
                  dtype: torch.dtype = torch.bfloat16, bn_momentum: float = 0.9,
-                 bn_eps: float = 1e-5):
+                 bn_eps: float = 1e-5, remat=""):
         super().__init__()
+        self.remat = remat
         self.layers = tuple(layers)
         self.outlook = tuple(outlook_attention)
         self.downsamples = tuple(downsamples)
@@ -140,10 +144,11 @@ class VOLO(nn.Module):
                     continue
                 blk = getattr(self, f"s{s}b{i}")
                 if self.outlook[s]:
-                    x = blk(x, train, drop_gen)
+                    x = remat_call(blk, x, train, drop_gen, self.remat)
                 else:
                     B, H, W, C = x.shape
-                    x = blk(x.reshape(B, H * W, C), train, drop_gen).reshape(B, H, W, C)
+                    x = remat_call(blk, x.reshape(B, H * W, C), train, drop_gen,
+                                   self.remat).reshape(B, H, W, C)
             if self.downsamples[s]:
                 x = getattr(self, f"ds{s}")(x)
 

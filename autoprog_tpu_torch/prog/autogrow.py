@@ -206,11 +206,13 @@ def probe_candidate(ctx, batches: Sequence, *, r: int, keep, params,
 def train_one_epoch_super(ctx, epoch: int, loader, loader_search, *,
                           r_list: Sequence[int], l_list: Sequence[int],
                           cfg_strs: Sequence[str], splits: int, eval_times: int,
-                          epoch_time_m: Optional[AverageMeter] = None):
+                          epoch_time_m: Optional[AverageMeter] = None,
+                          re_prob: float = 0.0):
     """One supernet epoch with random sub-network sampling. Returns
     (train_metrics, search_metrics_rounds, loss_0, loss_last)."""
-    from autoprog_tpu_torch.engine import to_device
+    from autoprog_tpu_torch.engine import device_re_prob, to_device
     args = ctx.args
+    device_re = device_re_prob(args, re_prob)
     sampler = np.random.RandomState(epoch)
     l_min, l_max = l_list[0], l_list[-1]
     fam = getattr(ctx.mdef.arch, "family", "volo")
@@ -263,7 +265,7 @@ def train_one_epoch_super(ctx, epoch: int, loader, loader_search, *,
         l = int(sampler.choice(l_list))     # l before r, as the reference draws
         r = int(sampler.choice(r_list))
         metrics = ctx.sb.train_step(ctx.state, to_device(batch, ctx.device), lr, r=r,
-                                    keep=keep_of[l], splits=splits)
+                                    keep=keep_of[l], splits=splits, re_prob=device_re)
         pending.append((r_list.index(r), l_list.index(l), metrics["loss"]))
         batch_time.update(time.time() - end)
 

@@ -34,6 +34,7 @@ import torch
 
 from autoprog_tpu_torch.convert import jax_payload_to_torch
 from autoprog_tpu_torch.train import flax_msgpack
+from autoprog_tpu_torch.train.optim import AdamWBf16Mu, NesterovSGD
 
 CKPT_EXT = ".ckpt"
 NO_DEL_INTERVAL = 10   # epochs between kept `keep-<epoch>` snapshots
@@ -169,27 +170,41 @@ def _same_keys(what: str, got: Mapping[str, Any], want: Mapping[str, Any]) -> No
                        f"unexpected {extra[:5]}")
 
 
+#: the state each kind of optimizer keeps per parameter, by name
+_OPT_STATE = {"adam": ("exp_avg", "exp_avg_sq"), "sgd": ("momentum_buffer",)}
+
+
 def _load_optimizer(optimizer: torch.optim.Optimizer, saved: Mapping[str, Any],
                     names: Dict[int, str]) -> None:
     """The port's own optimizer `state_dict` (keyed by index: the optimizer
-    must be made by `create_optimizer` for the same arch), or the Adam state
-    by name that `convert.optax_to_adamw` makes of a JAX file. Either way
-    the hyperparameters stay the current run's."""
+    must be made by `create_optimizer` for the same arch), or the state by
+    name that `convert.optax_to_torch_state` makes of a JAX file (Adam
+    moments or the SGD momentum; cast to the optimizer's own dtypes: a bf16
+    `exp_avg` under --adam-mu-bf16). Either way the hyperparameters stay the
+    current run's."""
     hyper = [{k: v for k, v in g.items() if k != "params"} for g in optimizer.param_groups]
+    kind = "sgd" if isinstance(optimizer, NesterovSGD) else "adam"
     if "state" in saved and "param_groups" in saved:
         optimizer.load_state_dict(saved)
-    elif "exp_avg" in saved:
-        _same_keys("the optimizer state", saved["exp_avg"], names.values())
+    elif any(k in saved for ks in _OPT_STATE.values() for k in ks):
+        if not all(k in saved for k in _OPT_STATE[kind]):
+            raise NotImplementedError(
+                f"the checkpoint's optimizer state ({sorted(saved)}) is not the state of "
+                f"this run's optimizer ({type(optimizer).__name__}); use --no-resume-opt")
+        for k in _OPT_STATE[kind]:
+            _same_keys("the optimizer state", saved[k], names.values())
+        mu_dtype = torch.bfloat16 if isinstance(optimizer, AdamWBf16Mu) else None
         for group in optimizer.param_groups:
             for p in group["params"]:
                 n = names[id(p)]
-                optimizer.state[p] = {
-                    "step": torch.tensor(float(saved["count"]), dtype=torch.float32),
-                    "exp_avg": saved["exp_avg"][n].to(p.device, p.dtype).clone(),
-                    "exp_avg_sq": saved["exp_avg_sq"][n].to(p.device, p.dtype).clone()}
+                st = {k: saved[k][n].to(p.device, p.dtype).clone() for k in _OPT_STATE[kind]}
+                if kind == "adam":
+                    st["step"] = torch.tensor(float(saved["count"]), dtype=torch.float32)
+                    st["exp_avg"] = st["exp_avg"].to(mu_dtype or p.dtype)
+                optimizer.state[p] = st
     else:
         raise NotImplementedError("the checkpoint's optimizer state is neither the port's "
-                                  "nor an optax Adam state; use --no-resume-opt")
+                                  "nor an optax Adam or trace state; use --no-resume-opt")
     for g, h in zip(optimizer.param_groups, hyper):
         g.update(h)
 

@@ -1,12 +1,24 @@
 """Optimizer, gradient clipping and LR schedules, counterpart of
 `autoprog_tpu/train/optim.py`.
 
-AdamW is `torch.optim.AdamW` with two parameter groups: weight decay on
-parameters with ndim > 1 other than pos_embed / cls_token / dist_token, none
-on the rest. That is the JAX package's optax chain `scale_by_adam ->
-add_decayed_weights(mask) -> x(-lr)`: both compute p - lr * (m_hat /
-(sqrt(v_hat) + eps) + wd * p) from the pre-update p
-(`tests/test_torch_train_step.py` checks it step for step).
+Every optimizer has two parameter groups: weight decay on parameters with
+ndim > 1 other than pos_embed / cls_token / dist_token, none on the rest.
+
+  * adamw / adam: `torch.optim.AdamW`. That is the JAX package's optax chain
+    `scale_by_adam -> add_decayed_weights(mask) -> x(-lr)`: both compute
+    p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p) from the pre-update p
+    (`tests/test_torch_train_step.py` checks it step for step).
+  * adamw / adam with `--adam-mu-bf16`: `AdamWBf16Mu`, the same update with
+    the first moment stored in bf16, as optax's `mu_dtype=bfloat16`
+    (`torch.optim.AdamW` keeps its moments in the parameters' dtype).
+  * sgd / momentum: `NesterovSGD`, optax `trace(momentum, nesterov=True) ->
+    add_decayed_weights(mask) -> x(-lr)`. The decay is added after the
+    momentum, from the pre-update p; `torch.optim.SGD(weight_decay=...)`
+    would fold it into the momentum buffer, which is another optimizer.
+
+The two hand-written optimizers update all parameters of a group with
+`torch._foreach_*` calls and keep the state names of torch's (`step`,
+`exp_avg`, `exp_avg_sq`; `momentum_buffer`), so checkpoints hold them alike.
 
 Gradient clipping (`--clip-grad` with `--clip-mode` norm | value | agc)
 follows optax's `clip_by_global_norm`, `clip` and `adaptive_grad_clip`; the
@@ -21,6 +33,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Iterable, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 NO_WD_NAMES = ("pos_embed", "cls_token", "dist_token")
@@ -31,20 +44,114 @@ def decays(name: str, p: torch.Tensor) -> bool:
     return p.ndim > 1 and not any(n in NO_WD_NAMES for n in name.split("."))
 
 
+class AdamWBf16Mu(torch.optim.Optimizer):
+    """AdamW with `exp_avg` stored in bf16, step for step optax's
+    `scale_by_adam(mu_dtype=bfloat16)`: m32 = (1 - b1) * g + bf16(b1 * m)
+    in f32 (optax multiplies the stored bf16 moment by b1 in bf16); this
+    step's update uses m32; only then is m stored as bf16(m32), rounded to
+    nearest."""
+
+    def __init__(self, params, lr: float = 0.0, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay))
+        # load_state_dict casts every state tensor to its parameter's dtype
+        self.register_load_state_dict_post_hook(AdamWBf16Mu._mu_to_bf16)
+
+    @staticmethod
+    def _mu_to_bf16(optimizer) -> None:
+        for st in optimizer.state.values():
+            if "exp_avg" in st:
+                st["exp_avg"] = st["exp_avg"].to(torch.bfloat16)
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            ps = [p for p in group["params"] if p.grad is not None]
+            if not ps:
+                continue
+            for p in ps:
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.tensor(0.0)
+                    st["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+            torch._foreach_add_([self.state[p]["step"] for p in ps], 1.0)
+            b1, b2 = group["betas"]
+            t = int(self.state[ps[0]]["step"])      # a CPU tensor: no device sync
+            grads = [p.grad for p in ps]
+            mu = [self.state[p]["exp_avg"] for p in ps]
+            nu = [self.state[p]["exp_avg_sq"] for p in ps]
+            m32 = torch._foreach_mul(grads, 1.0 - b1)
+            # optax rounds b1 to bf16 too; a host scalar, so no copy to the device
+            decayed = torch._foreach_mul(mu, float(torch.tensor(b1, dtype=torch.bfloat16)))
+            widened = [torch.empty_like(g) for g in grads]
+            torch._foreach_copy_(widened, decayed)
+            torch._foreach_add_(m32, widened)
+            g2 = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(g2, 1.0 - b2)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_add_(nu, g2)
+            # bias corrections in f32, as optax computes them
+            bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(t))
+            bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(t))
+            denom = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            upd = torch._foreach_div(m32, bc1)
+            torch._foreach_div_(upd, denom)
+            if group["weight_decay"]:
+                torch._foreach_add_(upd, ps, alpha=group["weight_decay"])
+            torch._foreach_add_(ps, upd, alpha=-group["lr"])
+            torch._foreach_copy_(mu, m32)
+
+
+class NesterovSGD(torch.optim.Optimizer):
+    """optax `trace(decay=momentum, nesterov=True)` then
+    `add_decayed_weights` then x(-lr): buf = g + m * buf, u = g + m * buf +
+    wd * p, p -= lr * u (p the pre-update parameter)."""
+
+    def __init__(self, params, lr: float = 0.0, momentum: float = 0.9,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, momentum=momentum, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            ps = [p for p in group["params"] if p.grad is not None]
+            if not ps:
+                continue
+            for p in ps:
+                self.state[p].setdefault("momentum_buffer", torch.zeros_like(p))
+            m = group["momentum"]
+            grads = [p.grad for p in ps]
+            bufs = [self.state[p]["momentum_buffer"] for p in ps]
+            torch._foreach_mul_(bufs, m)
+            torch._foreach_add_(bufs, grads)
+            upd = torch._foreach_mul(bufs, m)
+            torch._foreach_add_(upd, grads)
+            if group["weight_decay"]:
+                torch._foreach_add_(upd, ps, alpha=group["weight_decay"])
+            torch._foreach_add_(ps, upd, alpha=-group["lr"])
+
+
 def create_optimizer(args, model: torch.nn.Module) -> torch.optim.Optimizer:
     opt = args.opt.lower()
-    if opt not in ("adamw", "adam"):
-        raise NotImplementedError(f"--opt {args.opt}: only adamw and adam are "
-                                  "ported yet")
-    betas = tuple(args.opt_betas) if args.opt_betas else (0.9, 0.999)
-    eps = args.opt_eps if args.opt_eps is not None else 1e-8
-    wd = args.weight_decay if opt == "adamw" else 0.0
+    if opt not in ("adamw", "adam", "sgd", "momentum"):
+        raise ValueError(f"unsupported optimizer {args.opt!r}")
+    wd = args.weight_decay if opt != "adam" else 0.0
     named = list(model.named_parameters())
     groups = [
         {"params": [p for n, p in named if decays(n, p)], "weight_decay": wd},
         {"params": [p for n, p in named if not decays(n, p)], "weight_decay": 0.0},
     ]
     # lr is set from the schedule before every step
+    if opt in ("sgd", "momentum"):
+        return NesterovSGD(groups, momentum=args.momentum)
+    betas = tuple(args.opt_betas) if args.opt_betas else (0.9, 0.999)
+    eps = args.opt_eps if args.opt_eps is not None else 1e-8
+    if getattr(args, "adam_mu_bf16", False):
+        return AdamWBf16Mu(groups, betas=betas, eps=eps)
     return torch.optim.AdamW(groups, lr=0.0, betas=betas, eps=eps)
 
 

@@ -1,15 +1,20 @@
 """Train and eval steps, counterpart of `autoprog_tpu/train/steps.py`.
 
-One train step, in the JAX step's order: build the target (token-label
-maps on the device) -> resize the batch to the stage resolution -> VOLO
-forward -> loss -> backward -> gradient clip -> AdamW -> one EMA sweep per
-decay (`torch._foreach_*` over all parameters). Gradient accumulation
-(`splits` > 1) is a Python loop over micro-batches with one optimizer
-update. PyTorch runs eagerly, so there is no per-configuration program
-cache: (r, keep, splits) are arguments of the call.
+One train step, in the JAX step's order: build the target (the integer
+labels for a loss that wants them, else token-label maps or their sparse
+form under AUTOPROG_SPARSE_TL=1, on the device) -> normalise a uint8 batch
+and random-erase it (`prep_images`) -> resize the batch to the stage
+resolution -> VOLO forward -> loss -> backward -> gradient clip -> the
+optimizer -> one EMA sweep per decay (`torch._foreach_*` over all
+parameters; bf16 trees accumulate in f32 and are stored with stochastic
+rounding). Gradient accumulation (`splits` > 1) is a Python loop over
+micro-batches with one optimizer update. PyTorch runs eagerly, so there is
+no per-configuration program cache: (r, keep, splits, re_prob) are
+arguments of the call.
 
-Randomness: DropPath/dropout draw from `drop_gen` (on the device) and the
-MixToken box from `mix_gen` (on the host), both seeded from the run seed.
+Randomness: DropPath/dropout draw from `drop_gen`, the erase boxes from
+`erase_gen` and the rounding dither from `ema_gen` (all on the device), the
+MixToken box from `mix_gen` (on the host), all seeded from the run seed.
 
 The search probes (`loss_probe_step`, `throughput_probe_step`,
 `chained_throughput_probe`) run the model in train mode without changing
@@ -21,13 +26,20 @@ the generators, so that every candidate sees the same draws.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from autoprog_tpu_torch.data.token_label import build_token_label_target, smooth_one_hot
+from autoprog_tpu_torch.data.token_label import (
+    build_token_label_target,
+    smooth_one_hot,
+    sparse_token_label_target,
+)
+from autoprog_tpu_torch.ops.erase import normalize_uint8, random_erase
 from autoprog_tpu_torch.ops.interpolate import resize_bilinear
+from autoprog_tpu_torch.ops.rounding import cast_bf16_sr
 from autoprog_tpu_torch.train.state import TrainState
 
 
@@ -62,12 +74,27 @@ def _buffers_restored(model: torch.nn.Module):
                 b.copy_(old)
 
 
+def _widened(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A parameter tree as the model's f32 parameters: a bf16 EMA tree
+    (`--model-ema-bf16`) is widened, as Flax casts it in the JAX package."""
+    return {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in params.items()}
+
+
+def _rows(target, sl: slice):
+    """Rows `sl` of a target: a tensor, or the sparse token-label dict."""
+    if isinstance(target, dict):
+        return {k: v[sl] for k, v in target.items()}
+    return target[sl]
+
+
 class StepBuilder:
     def __init__(self, *, train_loss: Callable, ema_decays: Tuple[float, ...] = (),
                  num_classes: int = 1000, smoothing: float = 0.1,
                  token_label: bool = False, has_token_label_data: bool = False,
                  grad_clip: Optional[Callable] = None,
-                 device: torch.device = torch.device("cpu"), seed: int = 0):
+                 device: torch.device = torch.device("cpu"), seed: int = 0,
+                 norm_mean=(0.485, 0.456, 0.406), norm_std=(0.229, 0.224, 0.225),
+                 re_count: int = 1):
         self.train_loss = train_loss
         self.ema_decays = tuple(ema_decays)
         self.num_classes = num_classes
@@ -75,35 +102,59 @@ class StepBuilder:
         self.token_label = token_label
         self.has_token_label_data = has_token_label_data
         self.grad_clip = grad_clip
+        self.norm_mean, self.norm_std = tuple(norm_mean), tuple(norm_std)
+        self.re_count = re_count
         self.drop_gen = torch.Generator(device).manual_seed(seed + 1)
         self.mix_gen = torch.Generator("cpu").manual_seed(seed + 2)
+        self.erase_gen = torch.Generator(device).manual_seed(seed + 3)
+        self.ema_gen = torch.Generator(device).manual_seed(seed + 4)
 
     def build_target(self, batch: Dict[str, torch.Tensor], r: int):
-        """Device-side target: host-mixed soft targets, token-label maps at
-        the token grid r // 16, or smoothed one-hot rows."""
+        """Device-side target: the integer labels (the JSD loss), host-mixed
+        soft targets, token-label maps at the token grid r // 16 (their
+        sparse dict under AUTOPROG_SPARSE_TL=1 for a loss that takes it), or
+        smoothed one-hot rows."""
+        if getattr(self.train_loss, "wants_int_labels", False):
+            return batch["label"]
         if "soft_target" in batch:
             return batch["soft_target"]
         if self.token_label and self.has_token_label_data and "label_scores" in batch:
-            return build_token_label_target(
-                batch["label"], batch["label_scores"], batch["label_inds"],
-                num_classes=self.num_classes, smoothing=self.smoothing,
-                label_size=r // 16, gt_soft=batch.get("gt_soft"))
+            sparse = os.environ.get("AUTOPROG_SPARSE_TL", "0") == "1" and \
+                getattr(self.train_loss, "supports_sparse_tl", False)
+            build = sparse_token_label_target if sparse else build_token_label_target
+            return build(batch["label"], batch["label_scores"], batch["label_inds"],
+                         num_classes=self.num_classes, smoothing=self.smoothing,
+                         label_size=r // 16, gt_soft=batch.get("gt_soft"))
         return smooth_one_hot(batch["label"], self.num_classes, self.smoothing)
+
+    def prep_images(self, images: torch.Tensor, re_prob: float = 0.0) -> torch.Tensor:
+        """A uint8 batch (`--uint8-pipe`) normalised on the device, then
+        random-erased where `re_prob` > 0 (training); other batches as they
+        are."""
+        if images.dtype == torch.uint8:
+            images = normalize_uint8(images, self.norm_mean, self.norm_std, torch.float32)
+            if re_prob > 0:
+                images = random_erase(images, self.erase_gen, prob=re_prob,
+                                      count=self.re_count)
+        return images
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor], lr: float, *,
                    r: int, keep=None, splits: int = 1,
-                   bbox: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                   bbox: Optional[torch.Tensor] = None,
+                   re_prob: float = 0.0) -> Dict[str, torch.Tensor]:
         """One optimizer update, in place on `state`; returns {"loss"} as a
-        device scalar (no host sync). `bbox` injects the MixToken box."""
+        device scalar (no host sync). `bbox` injects the MixToken box;
+        `re_prob` erases uint8 batches on the device."""
         model = state.model
         images, target = batch["image"], self.build_target(batch, r)
         mb = images.shape[0] // splits
+        tb = (target["vals"] if isinstance(target, dict) else target).shape[0] // splits
         loss_sum = torch.zeros((), device=images.device)
         for i in range(splits):
-            sl = slice(i * mb, (i + 1) * mb)
-            out = model(resize_bilinear(images[sl], r), train=True, keep=keep,
+            x = self.prep_images(images[i * mb:(i + 1) * mb], re_prob)
+            out = model(resize_bilinear(x, r), train=True, keep=keep,
                         bbox=bbox, drop_gen=self.drop_gen, mix_gen=self.mix_gen)
-            loss = self.train_loss(out, target[sl])
+            loss = self.train_loss(out, _rows(target, slice(i * tb, (i + 1) * tb)))
             (loss / splits).backward()
             loss_sum += loss.detach()
         named = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
@@ -115,14 +166,27 @@ class StepBuilder:
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         if self.ema_decays:
-            params = [p.detach() for p in model.parameters()]
-            with torch.no_grad():
-                for d, ema in zip(self.ema_decays, state.ema_params):
-                    e = list(ema.values())
-                    torch._foreach_mul_(e, d)
-                    torch._foreach_add_(e, params, alpha=1.0 - d)
+            self._update_ema(state, [p.detach() for p in model.parameters()])
         state.step += 1
         return {"loss": loss_sum / splits}
+
+    @torch.no_grad()
+    def _update_ema(self, state: TrainState, params) -> None:
+        """e = d * e + (1 - d) * p for every decay. A bf16 tree
+        (`--model-ema-bf16`) accumulates in f32 and is stored by stochastic
+        rounding, with a dither sweep of its own per decay and step (round to
+        nearest would freeze it)."""
+        for d, ema in zip(self.ema_decays, state.ema_params):
+            e = list(ema.values())
+            if e[0].dtype != torch.bfloat16:
+                torch._foreach_mul_(e, d)
+                torch._foreach_add_(e, params, alpha=1.0 - d)
+                continue
+            e32 = [torch.empty_like(p) for p in params]
+            torch._foreach_copy_(e32, e)
+            torch._foreach_mul_(e32, d)
+            torch._foreach_add_(e32, params, alpha=1.0 - d)
+            cast_bf16_sr(e32, self.ema_gen, out=e)
 
     @staticmethod
     def _eval_logits(state: TrainState, images: torch.Tensor, keep, params) -> torch.Tensor:
@@ -130,7 +194,7 @@ class StepBuilder:
         if params is None:
             logits = model(images, train=False, keep=keep)
         else:
-            logits = torch.func.functional_call(model, params, (images,),
+            logits = torch.func.functional_call(model, _widened(params), (images,),
                                                 {"train": False, "keep": keep})
         return logits[0] if isinstance(logits, tuple) else logits
 
@@ -139,8 +203,9 @@ class StepBuilder:
                   params: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """Metric sums of one eval batch; `params` (an EMA tree) replaces the
         model's parameters for this call."""
-        return metrics_from_logits(self._eval_logits(state, batch["image"], keep, params),
-                                   batch["label"])
+        return metrics_from_logits(
+            self._eval_logits(state, self.prep_images(batch["image"]), keep, params),
+            batch["label"])
 
     @torch.no_grad()
     def logits_eval_step(self, state: TrainState, batch: Dict[str, torch.Tensor], *,
@@ -152,7 +217,8 @@ class StepBuilder:
         the f32 logits are averaged over each group first. Padding rows
         (label -1, trailing, a whole group each) drop out of every sum.
         Returns (metric sums, argmax per group)."""
-        logits = self._eval_logits(state, batch["image"], keep, params).float()
+        logits = self._eval_logits(state, self.prep_images(batch["image"]), keep,
+                                   params).float()
         labels = batch["label"]
         if tta > 1:
             logits = logits.reshape(-1, tta, logits.shape[-1]).mean(1)
@@ -164,10 +230,10 @@ class StepBuilder:
     def _probe_forward(self, state, images, r, keep, params, drop_gen, mix_gen):
         kwargs = {"train": True, "keep": keep, "drop_gen": drop_gen or self.drop_gen,
                   "mix_gen": mix_gen or self.mix_gen}
-        x = resize_bilinear(images, r)
+        x = resize_bilinear(self.prep_images(images), r)
         if params is None:
             return state.model(x, **kwargs)
-        return torch.func.functional_call(state.model, params, (x,), kwargs)
+        return torch.func.functional_call(state.model, _widened(params), (x,), kwargs)
 
     @torch.no_grad()
     def loss_probe_step(self, state: TrainState, batch: Dict[str, torch.Tensor], *, r: int,
@@ -192,7 +258,7 @@ class StepBuilder:
         update; the gradients are discarded. Returns the loss (device
         scalar)."""
         if params is not None:
-            params = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            params = {k: v.detach().requires_grad_(True) for k, v in _widened(params).items()}
         target = self.build_target(batch, r)
         with _buffers_restored(state.model):
             out = self._probe_forward(state, batch["image"], r, keep, params,

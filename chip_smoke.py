@@ -86,10 +86,24 @@ back to the CPU or to a plain twin):
      check, the step restarting at the stage as in the JAX package: 5 -> 10);
      `--finetune` into 100 classes for 2 steps (heads re-initialised, every
      other parameter the file's); then the volo_d1 eval forward at b=128,
-     224 px, bf16 with K1 + K2 on against both off (on, off, off, on).
+     224 px, bf16 with K1 + K2 on against both off (on, off, off, on);
+ 10. the train step's options at volo_d1's full width: `main.main` for 3
+     steps at b=64 with `--uint8-pipe --reprob 0.25 --model-ema-bf16
+     --adam-mu-bf16` and AUTOPROG_SPARSE_TL=1 (every step launches K1 / K2
+     once a layer, forward and backward, and moves every bf16 EMA tree;
+     exp_avg is bf16); one step at b=64, drop-path 0.1, under `--remat`
+     "", "full" and "dots" (loss and every gradient equal to the plain
+     step's within 2 ulp of bf16, or bit for bit, as printed; K1 / K2
+     forwards twice a layer under remat) and the step's time and peak memory
+     at b=128 in each mode and at b=256 with "full"; the sparse token-label
+     target against the dense one at b=128, r=224 and r=128 (loss and the
+     outputs' gradients within 1e-4 relative); `bench.py`'s step with each
+     of its three knobs against none (before and after); 4 steps of `--opt
+     sgd` under `--profile` (a trace naming K1's and K2's kernels); and
+     `scripts.bench_parts` at b=128 (with `--loss-bisect`) and b=256.
 
 The line before the last is the kernel report (JSON): for each kernel its
-launches on its path (K1 and K2: phases 4 to 6 and 9; K1's rows per shape: phases
+launches on its path (K1 and K2: phases 4 to 6, 9 and 10; K1's rows per shape: phases
 4 to 7 at that shape; `loop_img1`: its timing run of phase 8; K3, K4: the
 variants run of phase 8; K5 and the MHSA variants: the measurement scripts
 of phase 7), its
@@ -1286,6 +1300,306 @@ def phase_checkpoint(torch, card, fixed_run, fixed_argv, prog_run, prog_argv, ba
     return k1, k2
 
 
+def _grab_json(fn):
+    """Run `fn()` with stdout captured; its one JSON line, echoed, parsed."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn()
+    lines = buf.getvalue().strip().splitlines()
+    if len(lines) != 1:
+        fail(f"expected one JSON line on stdout, got {len(lines)}")
+    return json.loads(lines[0]), lines[0]
+
+
+def _watched_steps(torch, record):
+    """Wrap StepBuilder.train_step so that `record(state, before, launches)`
+    sees each step: the EMA trees before it and the K1 / K2 launches it
+    made. Returns the restore function."""
+    from autoprog_tpu_torch.ops import attention as A
+    from autoprog_tpu_torch.ops import outlook_fused as O
+    from autoprog_tpu_torch.train.steps import StepBuilder
+    original = StepBuilder.train_step
+
+    def wrapped(self, state, *a, **kw):
+        before = [{n: t.clone() for n, t in tree.items()} for tree in state.ema_params]
+        k0 = (A.LAUNCHES["fwd"], A.LAUNCHES["bwd"], O.LAUNCHES["fwd"], O.LAUNCHES["bwd"])
+        out = original(self, state, *a, **kw)
+        k1 = (A.LAUNCHES["fwd"], A.LAUNCHES["bwd"], O.LAUNCHES["fwd"], O.LAUNCHES["bwd"])
+        record(state, before, tuple(b - a_ for a_, b in zip(k0, k1)))
+        return out
+    StepBuilder.train_step = wrapped
+
+    def restore():
+        StepBuilder.train_step = original
+    return restore
+
+
+def _trainer_log(out):
+    run = glob.glob(os.path.join(out, "train", "*"))[0]
+    log = open(os.path.join(run, "log.txt")).read()
+    return run, log, [float(v) for v in re.findall(r"Train: 0 \[\s*\d+/\d+\]\s+Loss: (\S+)", log)]
+
+
+def phase_options(torch, card, batch: int = 64, big: int = 128):
+    """The train step's options on the card: the trainer with
+    uint8 batches erased on the device, sparse token labels and bf16 EMA and
+    Adam state; remat against the plain step; the sparse target against the
+    dense one; the bench's knobs; SGD under the profiler; the per-segment
+    times. Returns K1's and K2's launches over the phase."""
+    import argparse
+    from autoprog_tpu_torch import bench, create_model, main as fixed_main
+    from autoprog_tpu_torch.data.token_label import (
+        build_token_label_target, sparse_token_label_target)
+    from autoprog_tpu_torch.losses import build_train_loss
+    from autoprog_tpu_torch.ops.interpolate import resize_bilinear
+    from autoprog_tpu_torch.scripts import bench_parts
+    from autoprog_tpu_torch.scripts.timing import time_call
+    from autoprog_tpu_torch.train.optim import create_optimizer
+    from autoprog_tpu_torch.train.state import TrainState
+    from autoprog_tpu_torch.train.steps import StepBuilder
+    dev = torch.device("cuda")
+    for env in ("AUTOPROG_FUSED_ATTN", "AUTOPROG_FUSED_OUTLOOK", "AUTOPROG_SPARSE_TL",
+                "AUTOPROG_BENCH_EMA_BF16", "AUTOPROG_BENCH_MU_BF16"):
+        os.environ.pop(env, None)
+    k1, k2 = {"fwd": 0, "bwd": 0}, {"fwd": 0, "bwd": 0}
+
+    def counted(run):
+        out, a1, a2, _ = _counted(torch, run)
+        for side in ("fwd", "bwd"):
+            k1[side] += a1[side]
+            k2[side] += a2[side]
+        return out, a1, a2
+
+    model, img = "volo_d1", 224
+    layers = create_model(model).arch.layers
+    n_ol, n_tr = layers[0], sum(layers[1:])     # 4 outlookers, 14 transformer blocks
+    decays = ("0.998", "0.9986", "0.999", "0.9996")
+    base_argv = ["synthetic://", "--model", model, "--img-size", str(img), "-b", str(batch),
+                 "--epochs", "1", "--warmup-epochs", "0", "--cooldown-epochs", "0", "--lr",
+                 "1e-3", "--workers", "6", "--log-interval", "1"]
+
+    # 1. the options on the trainer: 3 steps
+    steps, seen = 3, []
+
+    def record(state, before, launches):
+        changed = [sum(int((t != before[i][n]).sum()) for n, t in tree.items())
+                   for i, tree in enumerate(state.ema_params)]
+        dtypes = {t.dtype for tree in state.ema_params for t in tree.values()}
+        mu = {s["exp_avg"].dtype for s in state.optimizer.state.values()}
+        seen.append((launches, changed, dtypes, mu))
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_options_")
+    argv = base_argv + ["--token-label", "--token-label-data", "synthetic", "--model-ema",
+                        "--model-ema-decay", *decays, "--uint8-pipe", "--reprob", "0.25",
+                        "--model-ema-bf16", "--adam-mu-bf16", "--fake-data-size",
+                        str(steps * batch), "--output", out]
+    os.environ["AUTOPROG_SPARSE_TL"] = "1"
+    restore = _watched_steps(torch, record)
+    t0 = time.time()
+    try:
+        counted(lambda: fixed_main.main(argv))
+    finally:
+        restore()
+        del os.environ["AUTOPROG_SPARSE_TL"]
+    _, log, losses = _trainer_log(out)
+    say(f"phase 10 options: AUTOPROG_SPARSE_TL=1 python -m autoprog_tpu_torch.main "
+        f"{' '.join(argv[:-2])} ({time.time() - t0:.1f} s incl. data and eval): losses "
+        f"{losses}")
+    for i, (launches, changed, dtypes, mu) in enumerate(seen):
+        say(f"phase 10 options step {i}: K1 fwd/bwd, K2 fwd/bwd launches {launches}; EMA "
+            f"elements changed per decay {changed}; EMA dtypes {sorted(map(str, dtypes))}; "
+            f"exp_avg dtypes {sorted(map(str, mu))}")
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        fail(f"expected {steps} finite losses, got {losses}")
+    if len(seen) != steps or any(
+            launches != (n_tr, n_tr, n_ol, n_ol)
+            or min(changed) <= 0 or dtypes != {torch.bfloat16} or mu != {torch.bfloat16}
+            for launches, changed, dtypes, mu in seen):
+        fail("the options' steps did not launch K1 / K2 once a layer, keep bf16 EMA trees "
+             "that move every step and a bf16 exp_avg")
+
+    # 2. remat: one step's loss and gradients against the plain step, then
+    # the step's time and peak memory
+    rs = torch.Generator(dev).manual_seed(10)
+    t = img // 16
+
+    def synthetic(b):
+        scores = torch.rand(b, 5, 14, 14, device=dev, generator=rs)
+        return {"image": torch.randn(b, img, img, 3, device=dev, generator=rs),
+                "label": torch.randint(0, 1000, (b,), device=dev, generator=rs),
+                "label_scores": scores / (scores.sum(1, keepdim=True) * 1.25),
+                "label_inds": torch.randint(0, 1000, (b, 5, 14, 14), device=dev,
+                                            generator=rs, dtype=torch.int32)}
+
+    args = argparse.Namespace(opt="adamw", opt_betas=None, opt_eps=None, weight_decay=0.05,
+                              token_label=True, token_label_size=t, ground_truth=False,
+                              dense_weight=0.5, cls_weight=1.0, jsd=False, aug_splits=0)
+    loss_fn = build_train_loss(args)
+    torch.manual_seed(0)
+    base = create_model(model).make(num_classes=1000, img_size=img).state_dict()
+
+    def make(mode, dp=0.1):
+        m = create_model(model).make(num_classes=1000, img_size=img, drop_path_rate=dp,
+                                     remat=mode).to(dev)
+        m.load_state_dict(base)
+        sb = StepBuilder(train_loss=loss_fn, ema_decays=tuple(map(float, decays)),
+                         num_classes=1000, token_label=True, has_token_label_data=True,
+                         device=dev, seed=0)
+        return m, sb
+
+    data = synthetic(batch)
+    bbox = torch.tensor([t // 7, t // 5, t // 2, 2 * t // 3], dtype=torch.int32)
+    grads = {}
+    for mode in ("", "full", "dots"):
+        m, sb = make(mode)
+
+        def one():
+            o = m(resize_bilinear(data["image"], img), train=True, bbox=bbox,
+                  drop_gen=sb.drop_gen, mix_gen=sb.mix_gen)
+            loss = loss_fn(o, sb.build_target(data, img))
+            loss.backward()
+            return loss.detach()
+        loss, a1, a2 = counted(one)
+        grads[mode] = (loss, {n: p.grad for n, p in m.named_parameters()}, a1, a2)
+        del m, sb
+    ref_loss, ref, r1, r2 = grads[""]
+    say(f"phase 10 remat b={batch} drop-path 0.1: plain loss {float(ref_loss):.6f}, K1 "
+        f"{r1}, K2 {r2}")
+    for mode in ("full", "dots"):
+        loss, g, a1, a2 = grads[mode]
+        same = torch.equal(loss, ref_loss) and all(torch.equal(g[n], ref[n]) for n in ref)
+        worst = max(float((g[n] - ref[n]).abs().max()) / max(float(ref[n].abs().max()), 1e-30)
+                    for n in ref)
+        say(f"phase 10 remat {mode}: loss {float(loss):.6f}, {len(ref)} gradients "
+            f"{'bit for bit equal to' if same else 'differ from'} the plain step's (largest "
+            f"difference {worst:.3e} of the largest |gradient|); K1 {a1}, K2 {a2}")
+        if worst > 2.0 ** -6 or float((loss - ref_loss).abs()) > 2.0 ** -6 * float(
+                ref_loss.abs()):
+            fail(f"--remat {mode}: the gradients differ from the plain step's by more than "
+                 f"2 ulp of bf16")
+        if r1["fwd"] != n_tr or a1["fwd"] != 2 * n_tr or a2["fwd"] != 2 * n_ol or \
+                a1["bwd"] != n_tr or a2["bwd"] != n_ol:
+            fail(f"--remat {mode}: K1 / K2 launches {a1}, {a2}, not {2 * n_tr} / {2 * n_ol} "
+                 f"forwards and {n_tr} / {n_ol} backwards")
+    del grads, ref
+
+    def timed_step(mode, b, iters=5):
+        m, sb = make(mode)
+        state = TrainState.create(model=m, optimizer=create_optimizer(args, m),
+                                  ema_decays=sb.ema_decays)
+        d = synthetic(b)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms, _, _ = counted(lambda: time_call(lambda: sb.train_step(state, d, 1e-3, r=img),
+                                             iters, 2, dev))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        return ms, peak
+
+    for mode, b in (("", big), ("full", big), ("dots", big), ("full", 2 * big)):
+        ms, peak = timed_step(mode, b)
+        say(f"phase 10 remat {mode or 'none'} train step b={b} {img}px bf16 on {card}: "
+            f"{ms:.2f} ms ({b / ms * 1e3:.1f} img/s), peak {peak:.2f} GiB")
+
+    # 3. the sparse target against the dense one: loss and the gradients of
+    # the model's outputs, at the full resolution and at a stage's
+    m, sb = make("", dp=0.0)
+    d = synthetic(big)
+    for r in (img, max(32, img * 4 // 7 // 32 * 32)):
+        with torch.no_grad():
+            x_cls, x_aux, bx = m(resize_bilinear(d["image"], r), train=True, bbox=bbox)
+        res = {}
+        for name, build in (("dense", build_token_label_target),
+                            ("sparse", sparse_token_label_target)):
+            # f32 leaves: the gradients of bf16 ones would be rounded to bf16
+            xc = x_cls.detach().float().requires_grad_(True)
+            xa = x_aux.detach().float().requires_grad_(True)
+            tgt = build(d["label"], d["label_scores"], d["label_inds"], num_classes=1000,
+                        smoothing=0.1, label_size=r // 16)
+            loss = loss_fn((xc, xa, bx), tgt)
+            res[name] = (loss.detach(), *torch.autograd.grad(loss, [xc, xa]))
+        (ld, gcd, gad), (ls, gcs, gas) = res["dense"], res["sparse"]
+        rel = [float((ls - ld).abs() / ld.abs())] + [
+            float((s - dd).abs().max() / dd.abs().max()) for s, dd in ((gcs, gcd), (gas, gad))]
+        say(f"phase 10 sparse target b={big} r={r} (token grid {r // 16}): loss sparse "
+            f"{float(ls):.7f} dense {float(ld):.7f}; relative differences loss, d x_cls, "
+            f"d x_aux {['%.2e' % v for v in rel]}")
+        if max(rel) > 1e-4:
+            fail(f"the sparse token-label target differs from the dense one at r={r}")
+    del m, sb, d
+
+    # 4. the bench's knobs: the step with each set, against none (before
+    # and after)
+    knobs = ("AUTOPROG_BENCH_EMA_BF16", "AUTOPROG_BENCH_MU_BF16", "AUTOPROG_SPARSE_TL")
+    times = {}
+    for knob in ("none",) + knobs + ("none again",):
+        if knob in knobs:
+            os.environ[knob] = "1"
+        try:
+            sbk, state, dk = bench.make_step(dev, big)
+            ms = counted(lambda: bench.time_step(sbk, state, dk, 1.6e-3, r=img, iters=10,
+                                                 warmup=3))[0] * 1e3
+        finally:
+            os.environ.pop(knob, None)
+        times[knob] = ms
+        del sbk, state, dk
+        say(f"phase 10 bench step b={big} {img}px bf16 on {card} with {knob}"
+            f"{'=1' if knob in knobs else ''}: {ms:.2f} ms ({big / ms * 1e3:.1f} img/s)")
+    none = (times["none"] + times["none again"]) / 2
+    say(f"phase 10 knobs against the mean of the two runs without ({none:.2f} ms): " +
+        ", ".join(f"{k}=1 {100 * (times[k] / none - 1):+.1f} %" for k in knobs))
+
+    # 5. SGD under the profiler: 4 steps, batches 1 and 2 traced
+    out = tempfile.mkdtemp(prefix="chip_smoke_sgd_")
+    trace_dir = os.path.join(out, "trace")
+    argv = base_argv + ["--opt", "sgd", "--token-label", "--token-label-data", "synthetic",
+                        "--profile", trace_dir, "--profile-steps", "2", "--fake-data-size",
+                        str(4 * batch), "--output", out]
+    t0 = time.time()
+    counted(lambda: fixed_main.main(argv))
+    run, log, losses = _trainer_log(out)
+    ckpt = torch.load(os.path.join(run, "last.ckpt"), map_location="cpu", weights_only=False)
+    kinds = {k for s in ckpt["optimizer"]["state"].values() for k in s}
+    traces = glob.glob(os.path.join(trace_dir, "*.json"))
+    busy = {}           # device microseconds by kernel name over the traced steps
+    for path in traces:
+        for ev in json.load(open(path)).get("traceEvents", []):
+            if ev.get("cat") == "kernel":
+                name = ev.get("name", "")
+                n, us = busy.get(name, (0, 0.0))
+                busy[name] = (n + 1, us + float(ev.get("dur", 0.0)))
+    names = set(busy)
+    found = {k: sorted(n for n in names if k in n)[:2]
+             for k in ("mhsa_fwd", "mhsa_bwd", "outlook_fwd", "outlook_bwd")}
+    say(f"phase 10 sgd: python -m autoprog_tpu_torch.main {' '.join(argv[:-2])} "
+        f"({time.time() - t0:.1f} s): losses {losses}; optimizer state {sorted(kinds)}; "
+        f"trace {traces} with {len(names)} kernel names, K1 / K2 among them: {found}")
+    if len(losses) != 4 or not all(math.isfinite(v) for v in losses) or \
+            kinds != {"momentum_buffer"}:
+        fail(f"--opt sgd: expected 4 finite losses and a momentum buffer, got {losses}, "
+             f"{kinds}")
+    if len(traces) != 1 or not all(found.values()):
+        fail(f"--profile: no trace naming K1's and K2's kernels ({traces}, {found})")
+    top = sorted(busy.items(), key=lambda kv: -kv[1][1])[:12]
+    say(f"phase 10 sgd trace, 2 steps at b={batch}: device busy "
+        f"{sum(us for _, us in busy.values()) / 2e3:.2f} ms a step in "
+        f"{sum(n for n, _ in busy.values()) // 2} kernels; by kernel (ms a step, launches a "
+        f"step): " + "; ".join(f"{name[:90]} {us / 2e3:.2f} ({n // 2})"
+                               for name, (n, us) in top))
+
+    # 6. the per-segment times
+    for b, flags in ((big, ["--loss-bisect"]), (2 * big, [])):
+        t0 = time.time()
+        res, line = _grab_json(lambda: counted(lambda: bench_parts.main([str(b)] + flags)))
+        say(f"phase 10 python -m autoprog_tpu_torch.scripts.bench_parts {b} {' '.join(flags)} "
+            f"({time.time() - t0:.1f} s): {line}")
+        if not all(v > 0 for v in res["rows"].values()):
+            fail(f"bench_parts at b={b}: a row without a time")
+    torch.cuda.synchronize()
+    return k1, k2
+
+
 def _row(name, src, replaces, launches, err, t, key):
     lib = t.get("lib_" + key)
     return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -1326,9 +1640,12 @@ def main():
     to, variants = phase_outlook_times(torch, card)
     phase_step_times(torch, card)
     ck_k1, ck_k2 = phase_checkpoint(torch, card, fixed_run, fixed_argv, prog_run, prog_argv)
+    op_k1, op_k2 = phase_options(torch, card)
     pal = "autoprog_tpu/ops/outlook_pallas.py"
     att = "autoprog_tpu/ops/attention_pallas.py"
-    k1 = {side: fixed[side] + prog_k1[side] + deit_k1[side] + ck_k1[side]
+    k1 = {side: fixed[side] + prog_k1[side] + deit_k1[side] + ck_k1[side] + op_k1[side]
+          for side in ("fwd", "bwd")}
+    k2 = {side: fixed_k2[side] + prog_k2[side] + ck_k2[side] + op_k2[side]
           for side in ("fwd", "bwd")}
 
     def vrow(key, src, replaces):
@@ -1355,12 +1672,12 @@ def main():
     report = {"kernels": [
         _row("mhsa_qkv_fwd", MHSA_SRC, att + ":206", k1["fwd"], worst["fwd"], t, "fwd"),
         _row("mhsa_qkv_bwd", MHSA_SRC, att + ":228", k1["bwd"], worst["bwd"], t, "bwd"),
-        {**_row("outlook_fused_fwd", OUTLOOK_SRC, pal + ":80",
-                fixed_k2["fwd"] + prog_k2["fwd"] + ck_k2["fwd"], worst_o["fwd"], to, "fwd"),
+        {**_row("outlook_fused_fwd", OUTLOOK_SRC, pal + ":80", k2["fwd"], worst_o["fwd"],
+                to, "fwd"),
          "ms_general": to["general_fwd"], "ms_f32": to["f32_fwd"],
          "ms_general_f32": to["f32_general_fwd"]},
-        {**_row("outlook_fused_bwd", OUTLOOK_SRC, pal + ":203",
-                fixed_k2["bwd"] + prog_k2["bwd"] + ck_k2["bwd"], worst_o["bwd"], to, "bwd"),
+        {**_row("outlook_fused_bwd", OUTLOOK_SRC, pal + ":203", k2["bwd"], worst_o["bwd"],
+                to, "bwd"),
          "ms_general": to["general_bwd"], "ms_f32": to["f32_bwd"],
          "ms_general_f32": to["f32_general_bwd"]},
         _row("outlook_attend_hm", OUTLOOK_SRC, pal + ":237", variants["attend_hm"],

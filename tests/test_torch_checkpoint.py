@@ -34,7 +34,7 @@ from autoprog_tpu.parallel.mesh import shard_batch
 from autoprog_tpu.train import checkpoint as jax_ckpt
 from autoprog_tpu_torch import engine, main as port_main
 from autoprog_tpu_torch.config import parse_args
-from autoprog_tpu_torch.convert import flax_to_torch, optax_to_adamw
+from autoprog_tpu_torch.convert import flax_to_torch, optax_to_torch_state
 from autoprog_tpu_torch.train import flax_msgpack
 from autoprog_tpu_torch.train.checkpoint import (CheckpointSaver, get_resume_epoch,
                                                  load_checkpoint_file)
@@ -238,11 +238,15 @@ def test_optax_chain_is_walked_to_its_adam_state(opt, clip):
     _, opt_state = tx.update(grads, tx.init(params), params)
     tree = serialization.msgpack_restore(serialization.msgpack_serialize(
         serialization.to_state_dict(opt_state)))
+    got = optax_to_torch_state(tree)
     if opt == "sgd":
-        with pytest.raises(NotImplementedError, match="adamw"):
-            optax_to_adamw(tree)
+        trace = next(s for s in opt_state if hasattr(s, "trace")).trace
+        assert set(got) == {"momentum_buffer"}
+        np.testing.assert_array_equal(got["momentum_buffer"]["fc.weight"].numpy(),
+                                      np.asarray(trace["fc"]["kernel"]).T)
+        np.testing.assert_array_equal(got["momentum_buffer"]["fc.bias"].numpy(),
+                                      np.asarray(trace["fc"]["bias"]))
         return
-    got = optax_to_adamw(tree)
     adam = next(s for s in opt_state if hasattr(s, "mu"))
     assert got["count"] == 1
     np.testing.assert_array_equal(got["exp_avg"]["fc.weight"].numpy(),
@@ -293,7 +297,7 @@ def test_port_resumes_the_jax_run_and_steps_like_it(jax_run, monkeypatch):
     for name, t in ctx.state.ema_params[0].items():
         np.testing.assert_allclose(t.numpy(), want_ema[name].numpy(), rtol=0, atol=1e-6,
                                    err_msg=name)
-    adam = optax_to_adamw(serialization.to_state_dict(
+    adam = optax_to_torch_state(serialization.to_state_dict(
         jax.tree.map(np.asarray, jnew.opt_state)))
     names = {id(p): n for n, p in ctx.state.model.named_parameters()}
     for p, s in ctx.state.optimizer.state.items():

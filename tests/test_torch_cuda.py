@@ -666,3 +666,87 @@ def test_resume_restores_the_state_bit_for_bit_on_the_card(card_run):
         for key in ("exp_avg", "exp_avg_sq"):
             assert torch.equal(got[i][key].cpu(), saved[i][key]), (i, key)
         assert float(got[i]["step"]) == float(saved[i]["step"]) == 2.0
+
+
+# ------------------------------------------- the train step's options on the card
+
+
+@pytest.mark.parametrize("n", [14, 8])
+def test_sparse_target_on_the_card_matches_the_cpu(cuda_device, n):
+    """The sparse token-label target on the card against the plain CPU
+    result: the cls row is a scatter-add of floats whose order CUDA's
+    atomics leave open, so within f32 rounding (1e-6 relative)."""
+    from autoprog_tpu_torch.data.token_label import sparse_token_label_target
+    g = torch.Generator().manual_seed(n)
+    scores = torch.rand(8, 5, 14, 14, generator=g)
+    inds = torch.randint(0, 20, (8, 5, 14, 14), generator=g, dtype=torch.int32)
+    labels = torch.randint(0, 20, (8,), generator=g)
+    kw = dict(num_classes=20, smoothing=0.1, label_size=n)
+    want = sparse_token_label_target(labels, scores, inds, **kw)
+    got = sparse_token_label_target(labels.cuda(), scores.cuda(), inds.cuda(), **kw)
+    assert torch.equal(got["inds"].cpu(), want["inds"])
+    for key in ("gt", "cls", "vals", "u"):
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-6, atol=1e-7)
+
+
+def test_sr_cast_on_the_card_is_the_cpu_s_bit_for_bit(cuda_device):
+    from autoprog_tpu_torch.ops.rounding import cast_bf16_sr, sr_bf16_with_dither
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1 << 16, generator=g) * torch.exp(torch.empty(1 << 16).uniform_(
+        -20, 20, generator=g))
+    x[:4] = torch.tensor([float("inf"), float("-inf"), float("nan"), 1.9999999])
+    dither = torch.randint(0, 1 << 16, x.shape, generator=g, dtype=torch.int32)
+    want = sr_bf16_with_dither(x, dither)
+    got = sr_bf16_with_dither(x.cuda(), dither.cuda())
+    assert torch.equal(got.view(torch.int16).cpu(), want.view(torch.int16))
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    a, b = cast_bf16_sr([x.cuda(), x[:100].cuda()], gen)
+    assert a.is_cuda and torch.equal(a[:100].view(torch.int16), b.view(torch.int16))
+
+
+def test_uint8_normalise_and_erase_on_the_card_match_the_cpu(cuda_device):
+    """normalize_uint8 exactly, and the erase applied to the same draws
+    exactly; the draws themselves come from the card's generator without a
+    host sync (one box an image at prob 1)."""
+    from autoprog_tpu_torch.ops.erase import apply_erase, erase_draws, normalize_uint8
+    g = torch.Generator().manual_seed(0)
+    img = torch.randint(0, 256, (16, 24, 20, 3), generator=g, dtype=torch.uint8)
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    x = normalize_uint8(img, mean, std, torch.float32)
+    assert torch.equal(normalize_uint8(img.cuda(), mean, std, torch.float32).cpu(), x)
+    draws = erase_draws(torch.Generator(cuda_device).manual_seed(0), x.shape, prob=1.0,
+                        count=2)
+    got = apply_erase(x.cuda(), draws)
+    want = apply_erase(x, [tuple(t.cpu() for t in d) for d in draws])
+    assert torch.equal(got.cpu(), want)
+    assert bool(((got != x.cuda()).flatten(1).any(1)).all())
+
+
+@pytest.mark.parametrize("mode", ["full", "dots"])
+def test_remat_on_the_card_matches_the_plain_step(cuda_device, mode):
+    """volo_h2_l4 (bf16, K1 and K2 on, drop-path 0.2): the loss and every
+    gradient with the blocks recomputed against the plain backward within
+    2 ulp of bf16; the recompute launches K1's and K2's forwards again."""
+    from autoprog_tpu_torch import create_model
+    from autoprog_tpu_torch.ops import outlook_fused as O
+    torch.manual_seed(0)
+    base = create_model("volo_h2_l4").make(num_classes=8, img_size=64).state_dict()
+    x = torch.randn(8, 64, 64, 3, device=cuda_device)
+    out = {}
+    for m in ("", mode):
+        model = create_model("volo_h2_l4").make(num_classes=8, img_size=64,
+                                                drop_path_rate=0.2, remat=m).to(cuda_device)
+        model.load_state_dict(base)
+        gen = torch.Generator(cuda_device).manual_seed(3)
+        before = (A.LAUNCHES["fwd"], O.LAUNCHES["fwd"])
+        x_cls, x_aux, _ = model(x, train=True, drop_gen=gen,
+                                bbox=torch.tensor([1, 1, 3, 3], dtype=torch.int32))
+        loss = x_cls.float().logsumexp(-1).mean() + x_aux.float().square().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        out[m] = (loss.detach(), {n: p.grad for n, p in model.named_parameters()},
+                  (A.LAUNCHES["fwd"] - before[0], O.LAUNCHES["fwd"] - before[1]))
+    assert out[""][2] == (2, 2) and out[mode][2] == (4, 4)
+    assert_close(out[mode][0], out[""][0], torch.bfloat16)
+    for n, g in out[""][1].items():
+        assert_close(out[mode][1][n], g, torch.bfloat16)

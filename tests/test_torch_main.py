@@ -109,8 +109,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--model-parallel", "2"], ["--remat"], ["--model-ema-bf16"], ["--adam-mu-bf16"],
-    ["--uint8-pipe"], ["--aug-splits", "3"], ["--profile", "trace"],
+    ["--model-parallel", "2"],
     ["--dataset", "tfds/imagenet2012"], ["--dataset", "hfds/imagenet-1k"],
 ])
 def test_main_refuses_flags_that_are_not_ported(flags):
