@@ -13,6 +13,15 @@ weight-decay groups of `train/optim.py`), remaps the parameters and every
 EMA tree into it (`prog/growth.py`); its step count starts again at 0, as
 the JAX package's does. The LR schedule is a function of the epoch and is
 untouched.
+
+Under a process group (`parallel/mesh.py`) every rank runs all of this on
+its share of the batch: the loaders take `-b // world` rows, a strided shard
+of the one permutation; the model is built from the run seed and rank 0's
+copy is broadcast after every build, rebuild and resume, while the step's
+generators are seeded from the seed plus the rank; every rank takes as many
+steps an epoch as the rank with the fewest batches; the logged loss and the
+eval sums are reduced over the ranks, and only rank 0 logs, writes images
+and checkpoints and traces the profile.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from autoprog_tpu_torch.data.mixup import Mixup
 from autoprog_tpu_torch.data.transforms import TrainTransform
 from autoprog_tpu_torch.utils.meters import AverageMeter
 from autoprog_tpu_torch.losses import build_train_loss
+from autoprog_tpu_torch.parallel import mesh
 from autoprog_tpu_torch.platform import default_device
 from autoprog_tpu_torch.prog.growth import grow_batch_stats, grow_params, shrink_params
 from autoprog_tpu_torch.registry import create_model
@@ -85,6 +95,7 @@ def init_model_state(ctx: TrainContext, model_name: str, dp: float, seed: int) -
     mdef = create_model(model_name)
     torch.manual_seed(seed)
     model = mdef.make(**model_kwargs(args, dp, ctx.compute_dtype())).to(ctx.device)
+    mesh.replicate(model)
     optimizer = create_optimizer(args, model)
     ema_decays = ctx.ema_decays if args.model_ema else ()
     ema_dtype = torch.bfloat16 if getattr(args, "model_ema_bf16", False) else None
@@ -95,6 +106,7 @@ def init_model_state(ctx: TrainContext, model_name: str, dp: float, seed: int) -
         num_classes=args.num_classes or 1000, smoothing=args.smoothing,
         token_label=args.token_label, has_token_label_data=bool(args.token_label_data),
         grad_clip=create_grad_clip(args), device=ctx.device, seed=seed,
+        rank=mesh.process_index(),
         norm_mean=ctx.data_config["mean"], norm_std=ctx.data_config["std"],
         re_count=getattr(args, "recount", 1))
     ctx.mdef = mdef
@@ -123,10 +135,17 @@ def setup(args, args_text: str, *, prog: bool = False, output_dir: str = "",
 # ------------------------------------------------------------------ loaders
 
 
+def _shard(batch_size: int) -> Dict[str, int]:
+    """This rank's loader arguments: its share of the global batch and its
+    place among the ranks."""
+    return dict(batch_size=max(batch_size // mesh.process_count(), 1),
+                process_index=mesh.process_index(), process_count=mesh.process_count())
+
+
 def make_train_loader(ctx: TrainContext, *, aa: str, re_prob: float, resize,
                       batch_size: Optional[int] = None) -> Loader:
     """Train loader at the full eval resolution; the step resizes on the
-    device to the stage resolution."""
+    device to the stage resolution. `batch_size` (default `-b`) is global."""
     args = ctx.args
     ds = create_dataset(
         args.dataset, args.data_dir, split=args.train_split, is_training=True,
@@ -141,7 +160,7 @@ def make_train_loader(ctx: TrainContext, *, aa: str, re_prob: float, resize,
                   token_label=bool(args.token_label_data)) if mixup_active else None
     loader = create_loader(
         ds, input_size=ctx.data_config["input_size"][-1],
-        batch_size=batch_size or args.batch_size, is_training=True, re_prob=re_prob,
+        **_shard(batch_size or args.batch_size), is_training=True, re_prob=re_prob,
         re_mode=args.remode, re_count=args.recount, scale=resize, ratio=args.ratio,
         hflip=args.hflip, vflip=args.vflip, color_jitter=args.color_jitter,
         auto_augment=aa, interpolation=args.train_interpolation,
@@ -174,7 +193,7 @@ def make_eval_loader(ctx: TrainContext) -> Loader:
                         dataset_size=getattr(args, "dataset_size", 0))
     loader = create_loader(
         ds, input_size=ctx.data_config["input_size"][-1],
-        batch_size=args.validation_batch_size_multiplier * args.batch_size,
+        **_shard(args.validation_batch_size_multiplier * args.batch_size),
         is_training=False, crop_pct=ctx.data_config["crop_pct"],
         interpolation=ctx.data_config["interpolation"], mean=ctx.data_config["mean"],
         std=ctx.data_config["std"], num_workers=args.workers)
@@ -196,7 +215,7 @@ def make_search_loader(ctx: TrainContext) -> Loader:
     batch = max(args.batch_size // max(args.batch_splits_list[-1], 1), 1) \
         if hasattr(args, "batch_splits_list") else args.batch_size
     return create_loader(
-        ds, input_size=ctx.data_config["input_size"][-1], batch_size=max(batch, 1),
+        ds, input_size=ctx.data_config["input_size"][-1], **_shard(max(batch, 1)),
         is_training=True, re_prob=0.0, scale=args.scale, ratio=args.ratio,
         hflip=args.hflip, vflip=args.vflip, auto_augment=args.aa,
         interpolation=args.train_interpolation, mean=ctx.data_config["mean"],
@@ -209,6 +228,17 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, t
 
 
 # --------------------------------------------------------------- epoch loops
+
+
+def epoch_batches(loader: Loader):
+    """(steps, iterator of (index, batch)) for one epoch. In one process,
+    every batch the loader yields; under a process group, as many as the
+    rank with the fewest batches has (strided shards differ by up to one
+    sample), so that every rank reaches every collective."""
+    if not mesh.process_group_active():
+        return len(loader), enumerate(loader)
+    nb = mesh.min_over_ranks(len(loader))
+    return nb, zip(range(nb), loader)
 
 
 def device_re_prob(args, re_prob: float) -> float:
@@ -224,7 +254,7 @@ class _Profile:
     `jax.profiler` trace; written to DIR as a Chrome trace."""
 
     def __init__(self, args, device: torch.device, epoch: int, nb: int):
-        self.dir = getattr(args, "profile", "") if epoch == 0 else ""
+        self.dir = getattr(args, "profile", "") if epoch == 0 and mesh.is_primary() else ""
         self.stop_at = min(getattr(args, "profile_steps", 10), max(nb - 2, 1))
         self.device = device
         self.prof = None
@@ -269,12 +299,13 @@ def train_one_epoch(ctx: TrainContext, epoch: int, loader: Loader, *, r: int,
     data_time = AverageMeter()
     loss_sum = None
     n_steps = 0
-    nb = len(loader)
+    nb, batches = epoch_batches(loader)
+    world = mesh.process_count()
     end = epoch_start = time.time()
     last_log_idx, last_log_t = 0, end
     profile = _Profile(args, ctx.device, epoch, nb)
     try:
-        for batch_idx, batch in enumerate(loader):
+        for batch_idx, batch in batches:
             profile.before(batch_idx)
             data_time.update(time.time() - end)
             metrics = ctx.sb.train_step(ctx.state, to_device(batch, ctx.device), lr,
@@ -283,10 +314,10 @@ def train_one_epoch(ctx: TrainContext, epoch: int, loader: Loader, *, r: int,
             n_steps += 1
             profile.after(batch_idx)
             if batch_idx % args.log_interval == 0 or batch_idx == nb - 1:
-                loss = float(metrics["loss"])               # host sync
+                loss = float(mesh.mean_over_ranks(metrics["loss"]))   # host sync
                 now = time.time()
                 steps = batch_idx - last_log_idx
-                rate = (batch["label"].shape[0] * steps / max(now - last_log_t, 1e-9)
+                rate = (batch["label"].shape[0] * world * steps / max(now - last_log_t, 1e-9)
                         if steps else 0.0)
                 _logger.info("Train: %d [%4d/%d]  Loss: %.4f  LR: %.3e  %.1f img/s  "
                              "Data: %.3fs", epoch, batch_idx, nb, loss, lr, rate,
@@ -297,13 +328,17 @@ def train_one_epoch(ctx: TrainContext, epoch: int, loader: Loader, *, r: int,
                                      ctx.data_config)
                 if ctx.saver is not None and args.recovery_interval and \
                         (batch_idx + 1) % args.recovery_interval == 0:
-                    ctx.saver.save_recovery(ckpt_payload(ctx, {}), epoch, batch_idx)
+                    ctx.saver.save_recovery(lambda: ckpt_payload(ctx, {}), epoch, batch_idx)
             end = time.time()
     finally:
         profile.close()
+    if nb < len(loader):
+        loader.close()          # stop the pool from finishing the abandoned epoch
     if epoch_time_m is not None:
         epoch_time_m.update(time.time() - epoch_start)
-    return {"loss": float(loss_sum) / n_steps if n_steps else float("nan")}
+    if not n_steps:
+        return {"loss": float("nan")}
+    return {"loss": float(mesh.mean_over_ranks(loss_sum)) / n_steps}
 
 
 def _save_image_grid(images, path: str, data_config) -> None:
@@ -325,14 +360,17 @@ def _save_image_grid(images, path: str, data_config) -> None:
 def evaluate(ctx: TrainContext, loader: Loader, *, keep=None, params=None,
              log_suffix: str = "") -> Dict[str, float]:
     """Validation loop: top-1 / top-5 / loss, summed on the device and read
-    once at the end. Partial final batches pad to the full batch size."""
-    acc = None
+    once at the end (summed over the ranks first: every rank must call it).
+    Partial final batches pad to the full batch size."""
+    keys = ("loss_sum", "top1_sum", "top5_sum", "count")
+    acc = {k: torch.zeros((), device=ctx.device) for k in keys}
     for batch in loader:
         batch = to_device(pad_eval_batch(batch, loader.batch_size), ctx.device)
         m = ctx.sb.eval_step(ctx.state, batch, keep=keep, params=params)
-        acc = m if acc is None else {k: acc[k] + m[k] for k in acc}
-    sums = {k: float(v) for k, v in acc.items()} if acc is not None else \
-        {"loss_sum": 0.0, "top1_sum": 0.0, "top5_sum": 0.0, "count": 0.0}
+        acc = {k: acc[k] + m[k] for k in keys}
+    if mesh.process_group_active():
+        acc = dict(zip(keys, mesh.all_reduce_sum([acc[k] for k in keys])))
+    sums = {k: float(v) for k, v in acc.items()}
     n = max(sums["count"], 1.0)
     metrics = {"loss" + log_suffix: sums["loss_sum"] / n,
                "top1" + log_suffix: 100.0 * sums["top1_sum"] / n,
@@ -425,6 +463,7 @@ def create_stage_model_and_state(ctx: TrainContext, new_model_name: str, *, dp: 
         for n, b in ctx.state.model.named_buffers():
             b.copy_(new_stats[n])
     ctx.state.ema_params = new_ema
+    mesh.replicate(ctx.state.model, *new_ema)
 
 
 def ckpt_payload(ctx: TrainContext, stage_info: Dict[str, Any]) -> Dict[str, Any]:
@@ -446,6 +485,7 @@ def resume_from(ctx: TrainContext, ckpt: Dict[str, Any]) -> int:
         stage_info = ckpt.get("stage_info") or {}
         init_model_state(ctx, arch, float(stage_info.get("dp", 0.0)), ctx.args.seed)
     restore_state(ckpt, ctx.state, restore_opt=not ctx.args.no_resume_opt)
+    mesh.replicate(ctx.state.model, *ctx.state.ema_params)
     if hasattr(ctx.schedule, "load_state_dict") and "lr_schedule" in ckpt:
         ctx.schedule.load_state_dict(ckpt["lr_schedule"])
     return int(ckpt.get("epoch", -1)) + 1

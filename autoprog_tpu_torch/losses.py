@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from autoprog_tpu_torch.data.token_label import smooth_one_hot
 from autoprog_tpu_torch.ops.mixtoken import mix_lambda
+from autoprog_tpu_torch.parallel.mesh import flip_batch
 
 
 def _soft_ce(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -42,7 +43,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def _mix_cls_target(target_cls, bbox, num_tokens: int):
     """Flip-mix the cls target by lambda = 1 - box_area / N."""
     lam = mix_lambda(bbox, num_tokens)
-    return lam * target_cls + (1.0 - lam) * torch.flip(target_cls, dims=(0,))
+    return lam * target_cls + (1.0 - lam) * flip_batch(target_cls)
 
 
 def _split_target(target, B, N, C):

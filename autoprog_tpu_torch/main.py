@@ -12,6 +12,13 @@ NotImplementedError.
 `--resume` (either package's checkpoint; then `--start-epoch` overrides the
 epoch), `--finetune` and `--initial-checkpoint` are each followed by one
 eval pass.
+
+Data parallel across processes, one rank per GPU (`parallel/mesh.py`):
+
+    torchrun --nproc_per_node 8 -m autoprog_tpu_torch.main ...
+
+`-b` is the global batch; each rank loads `-b // world` of it. Only rank 0
+makes the output directory, logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from autoprog_tpu_torch.utils.logging import make_output_dir, setup_logging, upd
 from autoprog_tpu_torch.utils.meters import AverageMeter
 from autoprog_tpu_torch import engine
 from autoprog_tpu_torch.finetune import load_pretrained_weights
+from autoprog_tpu_torch.parallel import mesh
 from autoprog_tpu_torch.registry import create_model
 from autoprog_tpu_torch.train.checkpoint import CheckpointSaver, load_checkpoint_file
 
@@ -52,21 +60,56 @@ def load_initial_weights(ctx, loader_eval) -> None:
     """--finetune (wins when both are given) or --initial-checkpoint: the
     checkpoint's parameters (its first EMA tree with --model-ema) into the
     model, adapted to its resolution and class count, then one eval pass.
-    Only the parameters load, as in the JAX package."""
+    Only the parameters load, as in the JAX package. Every rank loads."""
     args = ctx.args
     path = args.finetune or args.initial_checkpoint
     load_pretrained_weights(ctx.state.model, path, use_ema=args.model_ema)
+    mesh.replicate(ctx.state.model)
     engine.evaluate_all(ctx, loader_eval)
+
+
+def start_process(args, model_name: str, suffix: str, splits: int) -> str:
+    """Join torchrun's process group where there is one; the output
+    directory and the log file on rank 0 (other ranks log warnings only, to
+    stderr); the JAX entry points' per-rank batch check. Returns the output
+    directory ("" on ranks other than 0)."""
+    mesh.maybe_init_distributed()
+    output_dir = make_output_dir(args.output, model_name, suffix=suffix) \
+        if mesh.is_primary() else ""
+    setup_logging(os.path.join(output_dir, "log.txt") if output_dir else "",
+                  level=logging.INFO if output_dir else logging.WARNING)
+    per_rank = args.batch_size // mesh.process_count()
+    if per_rank % splits != 0:
+        raise SystemExit(f"per-rank batch size {per_rank} (-b {args.batch_size} over "
+                         f"{mesh.process_count()} ranks) must be divisible by "
+                         f"batch splits {splits}")
+    return output_dir
+
+
+def make_saver(args, args_text: str, output_dir: str) -> CheckpointSaver:
+    """The checkpoint saver: enabled on rank 0 only, which also writes
+    args.yaml."""
+    if output_dir:
+        with open(os.path.join(output_dir, "args.yaml"), "w") as f:
+            f.write(args_text)
+    return CheckpointSaver(checkpoint_dir=output_dir or ".",
+                           decreasing=(args.eval_metric == "loss"),
+                           max_history=args.checkpoint_hist, enabled=bool(output_dir))
 
 
 def main(argv=None):
     args, args_text = parse_args(argv, prog=False)
     check_ported(args)
-    output_dir = make_output_dir(args.output, args.model, suffix="fixed")
-    setup_logging(os.path.join(output_dir, "log.txt"))
-    if args.batch_size % args.batch_splits != 0:
-        raise SystemExit(f"batch size {args.batch_size} must be divisible by "
-                         f"--batch-splits {args.batch_splits}")
+    owns_group = not mesh.process_group_active()
+    try:
+        return _train(args, args_text)
+    finally:
+        if owns_group:
+            mesh.destroy()
+
+
+def _train(args, args_text):
+    output_dir = start_process(args, args.model, "fixed", args.batch_splits)
     # token_label_size follows the resolution BEFORE the loss is selected
     img_size = args.img_size or resolve_data_config(
         args, create_model(args.model).default_cfg)["input_size"][-1]
@@ -77,11 +120,7 @@ def main(argv=None):
     loader_train = engine.make_train_loader(ctx, aa=args.aa, re_prob=args.reprob,
                                             resize=args.scale)
     loader_eval = engine.make_eval_loader(ctx)
-    ctx.saver = CheckpointSaver(checkpoint_dir=output_dir,
-                                decreasing=(args.eval_metric == "loss"),
-                                max_history=args.checkpoint_hist)
-    with open(os.path.join(output_dir, "args.yaml"), "w") as f:
-        f.write(args_text)
+    ctx.saver = make_saver(args, args_text, output_dir)
 
     start_epoch = 0
     if args.resume:
@@ -106,12 +145,13 @@ def main(argv=None):
             eval_metrics, names = engine.evaluate_all(ctx, loader_eval)
             if hasattr(ctx.schedule, "observe"):  # plateau schedule
                 ctx.schedule.observe(max(eval_metrics[n] for n in names))
-            update_summary(epoch, train_metrics, eval_metrics,
-                           os.path.join(output_dir, "summary.csv"),
-                           write_header=best_metric is None)
+            if output_dir:
+                update_summary(epoch, train_metrics, eval_metrics,
+                               os.path.join(output_dir, "summary.csv"),
+                               write_header=best_metric is None)
             save_metric = max(eval_metrics[n] for n in names)
             best_metric, best_epoch = ctx.saver.save_checkpoint(
-                engine.ckpt_payload(ctx, {"r": img_size, "stage": 0}), epoch,
+                lambda: engine.ckpt_payload(ctx, {"r": img_size, "stage": 0}), epoch,
                 metric=save_metric)
     except KeyboardInterrupt:
         pass

@@ -15,6 +15,11 @@ drop-path, RandAugment, random erasing, crop scale) and arch are restored,
 so the run goes on at that stage and through the boundaries after it,
 searches included. `--finetune` / `--initial-checkpoint` load into the
 stage-0 model when not resuming.
+
+Data parallel across processes as main.py (`torchrun --nproc_per_node N -m
+autoprog_tpu_torch.main_prog ...`, `-b` global): every rank trains the
+supernet and probes the candidates, and the grow decision is rank 0's,
+broadcast to all (`prog/autogrow.py:sync_decision`).
 """
 
 from __future__ import annotations
@@ -26,12 +31,13 @@ from typing import List
 
 from autoprog_tpu_torch import engine
 from autoprog_tpu_torch.config import parse_args, parse_variant_name
-from autoprog_tpu_torch.main import check_ported, load_initial_weights
+from autoprog_tpu_torch.main import check_ported, load_initial_weights, make_saver, start_process
+from autoprog_tpu_torch.parallel import mesh
 from autoprog_tpu_torch.prog import autogrow
 from autoprog_tpu_torch.prog.depth import elastic_keep_masks
 from autoprog_tpu_torch.prog.schedule import get_divisor, no_repeats, progressive_schedule
-from autoprog_tpu_torch.train.checkpoint import CheckpointSaver, load_checkpoint_file
-from autoprog_tpu_torch.utils.logging import make_output_dir, setup_logging, update_summary
+from autoprog_tpu_torch.train.checkpoint import load_checkpoint_file
+from autoprog_tpu_torch.utils.logging import update_summary
 from autoprog_tpu_torch.utils.meters import AverageMeter
 
 _logger = logging.getLogger("autoprog_tpu_torch")
@@ -92,15 +98,16 @@ def auto_grow(ctx, *, search_r, search_h, search_l, current_dp, current_aa,
         keep = elastic_keep_masks(l_min, l_min, l_max,
                                   getattr(ctx.mdef.arch, "family", "volo"))
         eval_metrics, names = engine.evaluate_all(ctx, loader_eval, keep=keep)
-        update_summary(search_epoch, train_metrics, eval_metrics,
-                       os.path.join(output_dir, "summary.csv"),
-                       write_header=best_metric is None)
+        if output_dir:
+            update_summary(search_epoch, train_metrics, eval_metrics,
+                           os.path.join(output_dir, "summary.csv"),
+                           write_header=best_metric is None)
         save_metric = max(eval_metrics[n] for n in names)
-        payload = engine.ckpt_payload(ctx, {
-            "r": search_r[-1], "h": search_h[-1], "l": search_l[-1],
-            "stage": stage, "dp": current_dp, "supernet": True})
         best_metric, _ = ctx.saver.save_checkpoint(
-            payload, search_epoch, metric=save_metric, prefix="-search")
+            lambda: engine.ckpt_payload(ctx, {
+                "r": search_r[-1], "h": search_h[-1], "l": search_l[-1],
+                "stage": stage, "dp": current_dp, "supernet": True}),
+            search_epoch, metric=save_metric, prefix="-search")
         best_cfg, table = autogrow.score_candidates(rounds, cfg_strs, stage)
     loader_train.close()
     best_r, best_l = autogrow.parse_cfg(best_cfg)
@@ -112,9 +119,17 @@ def auto_grow(ctx, *, search_r, search_h, search_l, current_dp, current_aa,
 def main(argv=None):
     args, args_text = parse_args(argv, prog=True)
     check_ported(args)
+    owns_group = not mesh.process_group_active()
+    try:
+        return _train(args, args_text)
+    finally:
+        if owns_group:
+            mesh.destroy()
+
+
+def _train(args, args_text):
     args.model = _VARIANT_ALIASES.get(args.model, args.model)
-    output_dir = make_output_dir(args.output, args.model, suffix="prog")
-    setup_logging(os.path.join(output_dir, "log.txt"))
+    output_dir = start_process(args, args.model, "prog", args.batch_splits_list[-1])
 
     # progressive schedule
     r_max = args.img_size or (args.input_size[-1] if args.input_size
@@ -152,9 +167,6 @@ def main(argv=None):
     # dynamic grad-accum scaling by activation ratio
     original_splits = args.batch_splits_list[-1]
     act_max = l_max * r_max * r_max
-    if args.batch_size % original_splits != 0:
-        raise SystemExit(f"batch size {args.batch_size} must be divisible by "
-                         f"batch splits {original_splits}")
 
     def splits_for(l, r):
         return get_divisor(original_splits, (l * r * r) / act_max)
@@ -166,12 +178,7 @@ def main(argv=None):
     loader_eval = engine.make_eval_loader(ctx)
     loader_search = engine.make_search_loader(ctx)
 
-    eval_metric = args.eval_metric
-    ctx.saver = CheckpointSaver(
-        checkpoint_dir=output_dir, decreasing=(eval_metric == "loss"),
-        max_history=args.checkpoint_hist)
-    with open(os.path.join(output_dir, "args.yaml"), "w") as f:
-        f.write(args_text)
+    ctx.saver = make_saver(args, args_text, output_dir)
 
     start_epoch = 0
     if args.resume:
@@ -283,13 +290,14 @@ def main(argv=None):
             eval_metrics, names = engine.evaluate_all(ctx, loader_eval)
             if hasattr(ctx.schedule, "observe"):  # plateau schedule
                 ctx.schedule.observe(max(eval_metrics[n] for n in names))
-            update_summary(epoch, train_metrics, eval_metrics,
-                           os.path.join(output_dir, "summary.csv"),
-                           write_header=best_metric is None)
+            if output_dir:
+                update_summary(epoch, train_metrics, eval_metrics,
+                               os.path.join(output_dir, "summary.csv"),
+                               write_header=best_metric is None)
             save_metric = max(eval_metrics[n] for n in names)
-            payload = engine.ckpt_payload(ctx, dict(cur, stage=sched.stage_at_epoch(epoch)))
             best_metric, best_epoch = ctx.saver.save_checkpoint(
-                payload, epoch, metric=save_metric)
+                lambda: engine.ckpt_payload(ctx, dict(cur, stage=sched.stage_at_epoch(epoch))),
+                epoch, metric=save_metric)
     except KeyboardInterrupt:
         pass
     finally:

@@ -16,7 +16,11 @@ this port keeps because the JAX package is the reference:
   * BatchNorm in train mode normalises with the BIASED batch variance
     (E[x^2] - E[x]^2 in f32) and updates its running stats as
     ra = 0.9 * ra + 0.1 * batch with that biased variance, where
-    `torch.nn.BatchNorm2d` would feed the unbiased one;
+    `torch.nn.BatchNorm2d` would feed the unbiased one. Under a process
+    group of more than one rank the statistics are the global batch's, as
+    the JAX package's sharded batch gives them ("sync-BN by construction"):
+    one all-reduce of (sum x, sum x^2, count) per call, differentiable
+    (`parallel/mesh.py:sum_over_ranks`), so every rank's running stats agree;
   * the pos-embed bicubic uses Keys a = -0.5 (ops/interpolate.py).
 
 Randomness: DropPath and dropout take an explicit `torch.Generator` (`gen`)
@@ -38,6 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from autoprog_tpu_torch.ops.outlook import outlook_attention
+from autoprog_tpu_torch.parallel import mesh
 from autoprog_tpu_torch.ops.unfold import avg_pool_ceil
 
 _TRUNC = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
@@ -198,9 +203,12 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, train: bool):
         xf = x.float()
-        if train:
+        if train and mesh.process_count() > 1:
+            mean, var = self._global_stats(xf)
+        elif train:
             mean = xf.mean((0, 2, 3))
             var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if train:
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -210,6 +218,17 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(self.dtype)
+
+    @staticmethod
+    def _global_stats(xf):
+        """Mean and biased variance over every rank's batch: one all-reduce
+        of (sum x, sum x^2, count)."""
+        c = xf.shape[1]
+        count = xf.new_full((1,), xf.numel() // c)
+        sums = mesh.sum_over_ranks(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                                              count]))
+        mean = sums[:c] / sums[2 * c]
+        return mean, (sums[c:2 * c] / sums[2 * c] - mean * mean).clamp_min(0.0)
 
 
 class Mlp(nn.Module):

@@ -2,7 +2,9 @@
 
 The box is drawn on the host from a `torch.Generator` (three scalars per
 step, so no device sync). JAX's threefry and torch's Philox never give the
-same bits, so the parity tests hand both packages the same box.
+same bits, so the parity tests hand both packages the same box. Under a
+process group the batch flip is the global batch's (`parallel/mesh.py:
+flip_batch`) and every rank draws the same box.
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from autoprog_tpu_torch.parallel.mesh import flip_batch
 
 
 def rand_bbox(gen: torch.Generator, grid_h: int, grid_w: int) -> torch.Tensor:
@@ -45,7 +49,7 @@ def mix_tokens(x: torch.Tensor, bbox: torch.Tensor, scale: int = 1) -> torch.Ten
     tokens."""
     mask = region_mask(bbox, x.shape[1] // scale, x.shape[2] // scale, scale,
                        device=x.device)
-    return torch.where(mask[None, :, :, None], torch.flip(x, dims=(0,)), x)
+    return torch.where(mask[None, :, :, None], flip_batch(x), x)
 
 
 def unmix_tokens(x: torch.Tensor, bbox: torch.Tensor) -> torch.Tensor:

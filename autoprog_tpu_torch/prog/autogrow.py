@@ -18,9 +18,11 @@ are host code, copied unchanged. The rest is ported:
     the JAX package does, so both walk the same sequence;
   * the step time is `iters` forward + backward steps between two CUDA
     events after a warm-up step (`train/steps.py:chained_throughput_probe`);
-  * per-batch losses stay on the device and are read once per log interval;
-  * `sync_decision` is the identity: the port runs in one process
-    (data-parallel training is not ported yet).
+  * per-batch losses stay on the device and are read once per log interval
+    (averaged over the ranks under a process group);
+  * `sync_decision` broadcasts rank 0's decision under a process group
+    (`parallel/mesh.py`); every rank draws the same candidates from the same
+    `RandomState(epoch)`, and the probes' times stay per rank until then.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from autoprog_tpu_torch.parallel import mesh
 from autoprog_tpu_torch.prog.depth import elastic_keep_masks
 from autoprog_tpu_torch.prog.schedule import no_repeats
 from autoprog_tpu_torch.utils.meters import AverageMeter, SmoothMeter
@@ -210,7 +213,7 @@ def train_one_epoch_super(ctx, epoch: int, loader, loader_search, *,
                           re_prob: float = 0.0):
     """One supernet epoch with random sub-network sampling. Returns
     (train_metrics, search_metrics_rounds, loss_0, loss_last)."""
-    from autoprog_tpu_torch.engine import device_re_prob, to_device
+    from autoprog_tpu_torch.engine import device_re_prob, epoch_batches, to_device
     args = ctx.args
     device_re = device_re_prob(args, re_prob)
     sampler = np.random.RandomState(epoch)
@@ -242,7 +245,7 @@ def train_one_epoch_super(ctx, epoch: int, loader, loader_search, *,
     # round 0: per-candidate loss + the step time that feeds the criterion
     search_rounds: List[Dict[str, Dict[str, float]]] = [probe_round(True)]
 
-    nb = len(loader)
+    nb, batches = epoch_batches(loader)
     eval_steps = [nb // eval_times * i for i in range(1, eval_times)] + \
         [nb - 1] if eval_times else []
     loss_0, loss_last = {}, {}
@@ -252,7 +255,7 @@ def train_one_epoch_super(ctx, epoch: int, loader, loader_search, *,
     def drain():
         if not pending:
             return
-        vals = torch.stack([v for _, _, v in pending]).cpu().tolist()
+        vals = mesh.mean_over_ranks(torch.stack([v for _, _, v in pending])).cpu().tolist()
         for (i_r, i_l, _), v in zip(pending, vals):
             losses_m[i_r][i_l].update(float(v))
         pending.clear()
@@ -261,7 +264,7 @@ def train_one_epoch_super(ctx, epoch: int, loader, loader_search, *,
         return {f"r{i}_l{j}": fmt(losses_m[i][j].avg)
                 for j in range(len(l_list)) for i in range(len(r_list))}
 
-    for batch_idx, batch in enumerate(loader):
+    for batch_idx, batch in batches:
         l = int(sampler.choice(l_list))     # l before r, as the reference draws
         r = int(sampler.choice(r_list))
         metrics = ctx.sb.train_step(ctx.state, to_device(batch, ctx.device), lr, r=r,
@@ -284,6 +287,8 @@ def train_one_epoch_super(ctx, epoch: int, loader, loader_search, *,
             search_rounds.append(probe_round(False))
         end = time.time()
     drain()
+    if nb < len(loader):
+        loader.close()
     if epoch_time_m is not None:
         epoch_time_m.update(batch_time.sum)
     train_metrics = {"loss": losses_m[0][0].avg, "step_time": batch_time.avg}
@@ -294,6 +299,9 @@ def train_one_epoch_super(ctx, epoch: int, loader, loader_search, *,
 
 
 def sync_decision(best_r: int, best_l: int) -> Tuple[int, int]:
-    """The grow decision every process follows: the identity in one process
-    (the JAX package broadcasts it from process 0 on multi-host meshes)."""
+    """The grow decision every process follows: rank 0's, broadcast under a
+    process group (each rank timed its own probes); the identity in one
+    process."""
+    if mesh.process_group_active():
+        best_r, best_l = mesh.broadcast_ints([best_r, best_l])
     return best_r, best_l

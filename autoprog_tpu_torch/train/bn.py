@@ -3,8 +3,9 @@
 
 `recalibrate_bn` resets the running stats and re-estimates them from
 `max_steps` train-mode forwards (`--recal-bn-steps`), for use after growth
-when carrying the stats over is not wanted. One process: there is nothing to
-distribute.
+when carrying the stats over is not wanted. Under a process group every rank
+runs it on its shard, and the BatchNorm forward takes the global batch's
+statistics (`models/layers.py:BatchNorm`), so the stats agree on every rank.
 """
 
 from __future__ import annotations

@@ -6,7 +6,12 @@ Saving:
     `NO_DEL_INTERVAL` epochs;
   * top-`max_history` `checkpoint-<epoch>.ckpt` ranked by metric, and a
     `model_best.ckpt` link;
-  * batch-level `save_recovery` into `recovery_dir`, `find_recovery`.
+  * batch-level `save_recovery` into `recovery_dir`, `find_recovery`;
+  * under a process group only rank 0's saver is `enabled`: it alone builds
+    the payload (the callers pass a function that makes it) and writes;
+    every rank calls it and waits at a barrier after the write, so that a
+    resume on any rank reads a whole file. A disabled saver keeps the same
+    ranking.
 
 The payload carries the architecture name and stage record, parameters,
 BatchNorm stats, optimizer state, one EMA tree per decay, the resolved args
@@ -28,11 +33,12 @@ import glob
 import json
 import os
 import shutil
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
 from autoprog_tpu_torch.convert import jax_payload_to_torch
+from autoprog_tpu_torch.parallel import mesh
 from autoprog_tpu_torch.train import flax_msgpack
 from autoprog_tpu_torch.train.optim import AdamWBf16Mu, NesterovSGD
 
@@ -75,7 +81,8 @@ def get_resume_epoch(path: str) -> Optional[int]:
 
 class CheckpointSaver:
     def __init__(self, *, checkpoint_dir: str, recovery_dir: str = "",
-                 decreasing: bool = False, max_history: int = 10):
+                 decreasing: bool = False, max_history: int = 10, enabled: bool = True):
+        self.enabled = enabled
         self.checkpoint_dir = checkpoint_dir
         self.recovery_dir = recovery_dir or checkpoint_dir
         self.decreasing = decreasing
@@ -83,17 +90,33 @@ class CheckpointSaver:
         self.checkpoint_files: List[Tuple[str, float]] = []   # best first
         self.best_metric: Optional[float] = None
         self.best_epoch: Optional[int] = None
-        os.makedirs(checkpoint_dir, exist_ok=True)
-        os.makedirs(self.recovery_dir, exist_ok=True)
+        if enabled:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            os.makedirs(self.recovery_dir, exist_ok=True)
 
     def _cmp(self, a: float, b: float) -> bool:
         return a < b if self.decreasing else a > b
 
-    def save_checkpoint(self, payload: Dict[str, Any], epoch: int,
+    def save_checkpoint(self, make_payload: Callable[[], Dict[str, Any]], epoch: int,
                         metric: Optional[float] = None, prefix: str = ""
                         ) -> Tuple[Optional[float], Optional[int]]:
-        """Write last + ranked snapshot; returns (best_metric, best_epoch).
-        `prefix` names a separate series (the supernet search's "-search")."""
+        """Write last + ranked snapshot of `make_payload()`; returns
+        (best_metric, best_epoch). `prefix` names a separate series (the
+        supernet search's "-search"). A disabled saver calls nothing and
+        writes nothing."""
+        if self.enabled:
+            self._write(make_payload(), epoch, metric, prefix)
+        if metric is not None and (self.best_metric is None
+                                   or self._cmp(metric, self.best_metric)):
+            self.best_metric, self.best_epoch = metric, epoch
+            if self.enabled:
+                last = os.path.join(self.checkpoint_dir, f"last{prefix}{CKPT_EXT}")
+                self._link(last, os.path.join(self.checkpoint_dir, f"model_best{CKPT_EXT}"))
+        mesh.barrier("checkpoint")
+        return self.best_metric, self.best_epoch
+
+    def _write(self, payload: Dict[str, Any], epoch: int, metric: Optional[float],
+               prefix: str) -> None:
         payload = dict(payload, epoch=epoch, metric=metric, version=2)
         last = os.path.join(self.checkpoint_dir, f"last{prefix}{CKPT_EXT}")
         save_checkpoint_file(last, payload)
@@ -116,13 +139,14 @@ class CheckpointSaver:
                     os.remove(path)
                 except OSError:
                     pass
-        if metric is not None and (self.best_metric is None
-                                   or self._cmp(metric, self.best_metric)):
-            self.best_metric, self.best_epoch = metric, epoch
-            self._link(last, os.path.join(self.checkpoint_dir, f"model_best{CKPT_EXT}"))
-        return self.best_metric, self.best_epoch
 
-    def save_recovery(self, payload: Dict[str, Any], epoch: int, batch_idx: int) -> None:
+    def save_recovery(self, make_payload: Callable[[], Dict[str, Any]], epoch: int,
+                      batch_idx: int) -> None:
+        if self.enabled:
+            self._write_recovery(make_payload(), epoch, batch_idx)
+        mesh.barrier("recovery")
+
+    def _write_recovery(self, payload: Dict[str, Any], epoch: int, batch_idx: int) -> None:
         path = os.path.join(self.recovery_dir, f"recovery-{epoch}-{batch_idx}{CKPT_EXT}")
         save_checkpoint_file(path, dict(payload, epoch=epoch, batch_idx=batch_idx,
                                         version=2))

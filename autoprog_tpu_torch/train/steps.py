@@ -4,23 +4,32 @@ One train step, in the JAX step's order: build the target (the integer
 labels for a loss that wants them, else token-label maps or their sparse
 form under AUTOPROG_SPARSE_TL=1, on the device) -> normalise a uint8 batch
 and random-erase it (`prep_images`) -> resize the batch to the stage
-resolution -> VOLO forward -> loss -> backward -> gradient clip -> the
-optimizer -> one EMA sweep per decay (`torch._foreach_*` over all
-parameters; bf16 trees accumulate in f32 and are stored with stochastic
-rounding). Gradient accumulation (`splits` > 1) is a Python loop over
+resolution -> VOLO forward -> loss -> backward -> zeros for the gradients
+of the layers a keep mask skipped (as `jax.grad` gives them) -> under a
+process group, one all-reduce that averages the gradients over the ranks
+(`parallel/mesh.py`) -> gradient clip -> the optimizer -> one EMA sweep per
+decay (`torch._foreach_*` over all parameters; bf16 trees accumulate in f32
+and are stored with stochastic rounding). Gradient accumulation (`splits` > 1) is a Python loop over
 micro-batches with one optimizer update. PyTorch runs eagerly, so there is
 no per-configuration program cache: (r, keep, splits, re_prob) are
 arguments of the call.
 
 Randomness: DropPath/dropout draw from `drop_gen`, the erase boxes from
 `erase_gen` and the rounding dither from `ema_gen` (all on the device), the
-MixToken box from `mix_gen` (on the host), all seeded from the run seed.
+MixToken box from `mix_gen` (on the host). Under a process group the
+per-sample generators (`drop_gen`, `erase_gen`) are seeded from the seed
+plus the rank, as the JAX package's step key; `mix_gen` and `ema_gen` from
+the seed alone: MixToken pairs rows across the global batch, which takes one
+box for all of it, and the EMA trees are replicated state, which takes the
+same rounding on every rank.
 
 The search probes (`loss_probe_step`, `throughput_probe_step`,
 `chained_throughput_probe`) run the model in train mode without changing
 the training state: BatchNorm running stats are put back afterwards,
 gradients are discarded, no optimizer step is taken, and the caller passes
-the generators, so that every candidate sees the same draws.
+the generators, so that every candidate sees the same draws. Under a process
+group the loss probe is averaged over the ranks; the timed probe stays per
+rank (the grow decision is rank 0's, broadcast).
 """
 
 from __future__ import annotations
@@ -40,7 +49,12 @@ from autoprog_tpu_torch.data.token_label import (
 from autoprog_tpu_torch.ops.erase import normalize_uint8, random_erase
 from autoprog_tpu_torch.ops.interpolate import resize_bilinear
 from autoprog_tpu_torch.ops.rounding import cast_bf16_sr
+from autoprog_tpu_torch.parallel import mesh
 from autoprog_tpu_torch.train.state import TrainState
+
+#: gradients the train step filled with zeros (parameters the forward did
+#: not reach); a step without a keep mask adds none
+GRAD_FILLS = {"params": 0}
 
 
 def _ce_per_sample(logits, labels):
@@ -94,7 +108,7 @@ class StepBuilder:
                  grad_clip: Optional[Callable] = None,
                  device: torch.device = torch.device("cpu"), seed: int = 0,
                  norm_mean=(0.485, 0.456, 0.406), norm_std=(0.229, 0.224, 0.225),
-                 re_count: int = 1):
+                 re_count: int = 1, rank: int = 0):
         self.train_loss = train_loss
         self.ema_decays = tuple(ema_decays)
         self.num_classes = num_classes
@@ -104,9 +118,11 @@ class StepBuilder:
         self.grad_clip = grad_clip
         self.norm_mean, self.norm_std = tuple(norm_mean), tuple(norm_std)
         self.re_count = re_count
-        self.drop_gen = torch.Generator(device).manual_seed(seed + 1)
+        self.drop_gen = torch.Generator(device).manual_seed(seed + rank + 1)
+        # the same draws on every rank: one MixToken box for the global batch,
+        # one rounding of the replicated EMA trees
         self.mix_gen = torch.Generator("cpu").manual_seed(seed + 2)
-        self.erase_gen = torch.Generator(device).manual_seed(seed + 3)
+        self.erase_gen = torch.Generator(device).manual_seed(seed + rank + 3)
         self.ema_gen = torch.Generator(device).manual_seed(seed + 4)
 
     def build_target(self, batch: Dict[str, torch.Tensor], r: int):
@@ -157,7 +173,16 @@ class StepBuilder:
             loss = self.train_loss(out, _rows(target, slice(i * tb, (i + 1) * tb)))
             (loss / splits).backward()
             loss_sum += loss.detach()
-        named = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
+        named = list(model.named_parameters())
+        params = [p for _, p in named]
+        # a layer the keep mask skipped has no gradient; jax.grad gives it
+        # zeros, so the optimizer steps it (moments, decay, count) as optax does
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+                GRAD_FILLS["params"] += 1
+        if mesh.process_group_active():
+            mesh.all_reduce_grads(params)
         if self.grad_clip is not None:
             with torch.no_grad():
                 self.grad_clip(named)
@@ -166,7 +191,7 @@ class StepBuilder:
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         if self.ema_decays:
-            self._update_ema(state, [p.detach() for p in model.parameters()])
+            self._update_ema(state, [p.detach() for p in params])
         state.step += 1
         return {"loss": loss_sum / splits}
 
@@ -241,13 +266,14 @@ class StepBuilder:
                         drop_gen: Optional[torch.Generator] = None,
                         mix_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """Train-mode forward, hard-label CE on the cls logits, batch mean:
-        the search loss probe. `params` (an EMA tree) replaces the model's
-        parameters for this call. A device scalar; no host sync."""
+        the search loss probe, averaged over the ranks under a process group.
+        `params` (an EMA tree) replaces the model's parameters for this
+        call. A device scalar; no host sync in one process."""
         with _buffers_restored(state.model):
             out = self._probe_forward(state, batch["image"], r, keep, params,
                                       drop_gen, mix_gen)
         logits = out[0] if isinstance(out, tuple) else out
-        return _ce_per_sample(logits, batch["label"]).mean()
+        return mesh.mean_over_ranks(_ce_per_sample(logits, batch["label"]).mean())
 
     def throughput_probe_step(self, state: TrainState, batch: Dict[str, torch.Tensor], *,
                               r: int, keep=None,

@@ -12,7 +12,9 @@ checkpoint has one. Without `--tta` and `--real-labels` each batch goes
 through the trainer's own `StepBuilder.eval_step` and the sums are taken in
 the trainer's order, so on the same checkpoint and samples the metrics
 equal the trainer's eval row exactly. The device is `AUTOPROG_TORCH_DEVICE`
-(default cuda; see platform.py).
+(default cuda; see platform.py). It runs in one process: launched as more
+than one rank (torchrun's `WORLD_SIZE` > 1, or under a process group of
+more than one rank) it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from autoprog_tpu_torch.data.dataset import create_dataset
 from autoprog_tpu_torch.data.loader import create_loader, pad_eval_batch
 from autoprog_tpu_torch.engine import to_device
 from autoprog_tpu_torch.main import check_dataset
+from autoprog_tpu_torch.parallel import mesh
 from autoprog_tpu_torch.platform import default_device
 from autoprog_tpu_torch.registry import create_model, list_models
 from autoprog_tpu_torch.train.checkpoint import load_checkpoint_file
@@ -232,6 +235,9 @@ def write_results(results_file: str, results: List[dict]) -> None:
 
 
 def main(argv=None):
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or mesh.process_count() > 1:
+        raise NotImplementedError("validate.py runs in one process: multi-rank evaluation "
+                                  "is not ported to autoprog_tpu_torch yet")
     setup_logging()
     args = build_parser().parse_args(argv)
     checkpoints: List[str] = []

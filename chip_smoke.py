@@ -87,6 +87,9 @@ back to the CPU or to a plain twin):
      `--finetune` into 100 classes for 2 steps (heads re-initialised, every
      other parameter the file's); then the volo_d1 eval forward at b=128,
      224 px, bf16 with K1 + K2 on against both off (on, off, off, on);
+  (phase 4 also requires that no gradient was filled with zeros: every
+     parameter of a full-depth step has one; phase 5 prints the fills the
+     supernet's keep masks cause)
  10. the train step's options at volo_d1's full width: `main.main` for 3
      steps at b=64 with `--uint8-pipe --reprob 0.25 --model-ema-bf16
      --adam-mu-bf16` and AUTOPROG_SPARSE_TL=1 (every step launches K1 / K2
@@ -100,10 +103,33 @@ back to the CPU or to a plain twin):
      outputs' gradients within 1e-4 relative); `bench.py`'s step with each
      of its three knobs against none (before and after); 4 steps of `--opt
      sgd` under `--profile` (a trace naming K1's and K2's kernels); and
-     `scripts.bench_parts` at b=128 (with `--loss-bisect`) and b=256.
+     `scripts.bench_parts` at b=128 (with `--loss-bisect`) and b=256;
+ 11. data parallelism (`parallel/mesh.py`): (a) world 1 on NCCL, torchrun's
+     environment set by hand in this process: `main.main` with phase 4's
+     arguments (finite losses printed beside phase 4's, K1 14 and K2 4
+     launches a step forward and backward, the gradient all-reduce once a
+     step); (b) two gloo ranks sharing cuda:0, this script run as
+     `--dist-worker DIR` twice: `main_prog.main` with phase 5's arguments at
+     global b=64 and `--model-ema-bf16` (one decision, rank 0's, adopted by
+     both; one stage history ending at r=224, l=18; parameters, BatchNorm
+     stats and the bf16 EMA trees bit-equal across the ranks; K1 and K2
+     launched on each rank; 20 gradient all-reduces; checkpoints from rank 0
+     alone); (c) one volo_d1
+     f32 step on 32 images over the two ranks against this process's step
+     on the same images and parameters (loss within 1e-4 relative; the
+     all-reduced gradients within 1e-4 relative in the 2-norm over all of
+     them and per tensor, the stem's tensors within 5e-3: cancellation in
+     BatchNorm's backward leaves their gradients less exact; the limits sit
+     between the clean and the planted-fault readings of
+     `autoprog_tpu_torch/scripts/dp_parity.py`; every BatchNorm stat
+     within |err| <= 1e-4 (|x| + max |x|)); (d) the b=128 bf16 step without a group, under
+     NCCL world 1 and without again, the gradient all-reduce alone, and the
+     2-rank gloo step's time, which is two ranks sharing one card through
+     the host, not a data-parallel speed.
 
 The line before the last is the kernel report (JSON): for each kernel its
-launches on its path (K1 and K2: phases 4 to 6, 9 and 10; K1's rows per shape: phases
+launches on its path (K1 and K2: phases 4 to 6 and 9 to 11, both ranks of
+phase 11 (b) counted; K1's rows per shape: phases
 4 to 7 at that shape; `loop_img1`: its timing run of phase 8; K3, K4: the
 variants run of phase 8; K5 and the MHSA variants: the measurement scripts
 of phase 7), its
@@ -119,6 +145,7 @@ import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -516,7 +543,8 @@ def phase_trainer(torch, steps: int = 4, batch: int = 64):
     # the port's defaults on the card: K1 and K2 both on
     os.environ.pop("AUTOPROG_FUSED_ATTN", None)
     os.environ.pop("AUTOPROG_FUSED_OUTLOOK", None)
-    for counts in (LAUNCHES, OUTLOOK_LAUNCHES, ROUTES):
+    from autoprog_tpu_torch.train.steps import GRAD_FILLS
+    for counts in (LAUNCHES, OUTLOOK_LAUNCHES, ROUTES, GRAD_FILLS):
         for k in counts:
             counts[k] = 0
     t0 = time.time()
@@ -542,6 +570,10 @@ def phase_trainer(torch, steps: int = 4, batch: int = 64):
     if outlook["bwd"] != 4 * steps or outlook["fwd"] < 4 * steps:
         fail(f"K2 launches {outlook} do not cover 4 layers x {steps} steps")
     say(f"phase 4 K2 routes: {ROUTES}")
+    say(f"phase 4 gradients filled with zeros (parameters no forward reached): "
+        f"{GRAD_FILLS['params']}")
+    if GRAD_FILLS["params"]:
+        fail("the full-depth steps left parameters without a gradient")
     if ROUTES["fwd_general"] or ROUTES["bwd_general"] or \
             ROUTES["bwd_rows"] != outlook["bwd"] or ROUTES["fwd_rows"] != outlook["fwd"]:
         fail(f"volo_d1's steps did not all go through K2's row kernels: {ROUTES}")
@@ -584,7 +616,8 @@ def phase_prog_trainer(torch, steps: int = 5, batch: int = 64):
             str(time_iters), "--load-with-clone-ema", "--output", out]
     os.environ["AUTOPROG_FUSED_ATTN"] = "1"
     os.environ["AUTOPROG_FUSED_OUTLOOK"] = "1"
-    for counts in (A.LAUNCHES, O.LAUNCHES, O.ROUTES):
+    from autoprog_tpu_torch.train.steps import GRAD_FILLS
+    for counts in (A.LAUNCHES, O.LAUNCHES, O.ROUTES, GRAD_FILLS):
         for k in counts:
             counts[k] = 0
     t0 = time.time()
@@ -618,6 +651,8 @@ def phase_prog_trainer(torch, steps: int = 5, batch: int = 64):
     grid = [float(v) for line in re.findall(r"All Loss: (.*)", log)
             for v in re.findall(r": ([^;\s]+)", line)]
     say(f"phase 5 losses after the search: {losses}")
+    say(f"phase 5 gradients filled with zeros (the layers the supernet's keep masks "
+        f"skipped): {GRAD_FILLS['params']}")
     if len(sampled) != steps or len(losses) != 3 * steps or \
             not all(math.isfinite(v) for v in losses + grid) or best is None:
         fail(f"expected {steps} supernet steps and {3 * steps} finite losses, got "
@@ -1600,6 +1635,313 @@ def phase_options(torch, card, batch: int = 64, big: int = 128):
     return k1, k2
 
 
+# ------------------------------------------------- phase 11: data parallelism
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _torchrun_env(rank: int, world: int, port: int) -> dict:
+    return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def _timed_steps(torch, state, sb, data, iters: int) -> float:
+    """Wall milliseconds per step on the synchronised clock, after 2 steps."""
+    from autoprog_tpu_torch.parallel import mesh
+    rows = mesh.process_batch_slice(data["image"].shape[0])
+    local = {k: v[rows] for k, v in data.items()}
+    for _ in range(2):
+        sb.train_step(state, local, 1e-3, r=224)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        loss = sb.train_step(state, local, 1e-3, r=224)["loss"]
+    torch.cuda.synchronize()
+    if not math.isfinite(float(loss)):
+        fail("non-finite loss in the timed steps")
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _all_reduce_ms(torch, state, iters: int = 10) -> float:
+    """Milliseconds of one gradient all-reduce (every parameter's gradient,
+    f32) on the synchronised clock."""
+    from autoprog_tpu_torch.parallel import mesh
+    params = list(state.model.parameters())
+    for p in params:
+        p.grad = torch.ones_like(p)
+    mesh.all_reduce_grads(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        mesh.all_reduce_grads(params)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    for p in params:
+        p.grad = None
+    return ms
+
+
+def _state_digest(state) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    trees = [dict(state.model.named_parameters()), dict(state.model.named_buffers()),
+             *state.ema_params]
+    for tree in trees:
+        for name in sorted(tree):
+            h.update(name.encode())
+            h.update(tree[name].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_worker(out_dir: str) -> None:
+    """One rank of phase 11 (b) and (c), started by `phase_data_parallel`
+    with torchrun's environment, gloo and AUTOPROG_TORCH_DEVICE=cuda:0:
+    `main_prog.main` with phase 5's arguments, then the f32 step of (c) and
+    the timed steps. Writes rank<r>.json (and rank 0 its step's tensors) to
+    `out_dir`."""
+    import torch
+    from autoprog_tpu_torch import main_prog
+    from autoprog_tpu_torch.ops import attention as A
+    from autoprog_tpu_torch.ops import outlook_fused as O
+    from autoprog_tpu_torch.parallel import mesh
+    from autoprog_tpu_torch.prog import autogrow
+    from autoprog_tpu_torch.scripts import dp_parity
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not mesh.maybe_init_distributed():
+        fail("the worker found no torchrun environment")
+    rank = mesh.process_index()
+    res = {"rank": rank, "world": mesh.process_count(),
+           "backend": torch.distributed.get_backend(),
+           "device": str(torch.device("cuda", torch.cuda.current_device()))}
+    with open(os.path.join(out_dir, "argv.json")) as f:
+        argv = json.load(f)
+    decisions = []
+    sync = autogrow.sync_decision
+
+    def recorded(r, l):
+        synced = sync(r, l)
+        decisions.append([[r, l], list(synced)])
+        return synced
+    autogrow.sync_decision = recorded
+    run_dir = os.path.join(out_dir, f"out{rank}")
+    os.makedirs(run_dir)
+    for counts in (A.LAUNCHES, O.LAUNCHES, mesh.COUNTS):
+        for k in counts:
+            counts[k] = 0
+    t0 = time.time()
+    main_prog.main(argv + ["--output", run_dir])
+    torch.cuda.synchronize()
+    ctx = main_prog.LAST_CTX
+    res.update(wall=time.time() - t0, decisions=decisions, arch=ctx.mdef.name,
+               history=[{k: (list(map(float, v)) if isinstance(v, tuple) else v)
+                         for k, v in h.items()} for h in ctx.stage_history],
+               digest=_state_digest(ctx.state), k1=dict(A.LAUNCHES), k2=dict(O.LAUNCHES),
+               collectives=dict(mesh.COUNTS),
+               files=sorted(os.path.relpath(os.path.join(d, f), run_dir)
+                            for d, _, fs in os.walk(run_dir) for f in fs))
+    del ctx, main_prog.LAST_CTX
+    torch.cuda.empty_cache()
+
+    # (c) one f32 step on this rank's half of 32 images
+    state, sb, data = dp_parity.setup(32, torch.float32)
+    loss, grads, stats = dp_parity.dp_step(state, sb, data)
+    res.update(loss=loss, step_digest=_state_digest(state))
+    if rank == 0:
+        torch.save({"loss": loss, "grads": {k: v.cpu() for k, v in grads.items()},
+                    "stats": {k: v.cpu() for k, v in stats.items()}},
+                   os.path.join(out_dir, "step_rank0.pt"))
+    # (d) the 2-rank step's time and the gradient all-reduce alone, through the host
+    res["step_ms"] = _timed_steps(torch, state, sb, data, 5)
+    res["all_reduce_ms"] = _all_reduce_ms(torch, state, 3)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    mesh.destroy()
+
+
+def _close_per_tensor(name, got, want, rtol):
+    """|got - want| <= rtol * (|want| + max |want|), per tensor."""
+    for k, w in want.items():
+        err = (got[k].float() - w.float()).abs()
+        bound = rtol * (w.float().abs() + w.float().abs().max())
+        if not bool((err <= bound).all()):
+            fail(f"phase 11 {name} {k}: worst error {float(err.max()):.3e} beyond rtol {rtol}")
+
+
+def phase_data_parallel(torch, card, fixed_run, fixed_argv, prog_argv, batch: int = 128):
+    """Phase 11: the trainers across processes (`parallel/mesh.py`).
+    (d, first half) the b=128 step without a group; (a) world 1 on NCCL:
+    the step under the group, the gradient all-reduce alone, then
+    `main.main` with phase 4's arguments; (d) the step again without a
+    group; (b, c) two gloo ranks on cuda:0 (`dist_worker`); (c) the same f32
+    step in this process on all 32 images. Returns the K1 and K2 launches of
+    (a) and (b)."""
+    from autoprog_tpu_torch.main import main
+    from autoprog_tpu_torch.ops import attention as A
+    from autoprog_tpu_torch.ops import outlook_fused as O
+    from autoprog_tpu_torch.parallel import mesh
+    from autoprog_tpu_torch.scripts import dp_parity
+    t_phase = time.time()
+    for var in ("AUTOPROG_FUSED_ATTN", "AUTOPROG_FUSED_OUTLOOK", "AUTOPROG_DIST_BACKEND",
+                "AUTOPROG_TORCH_DEVICE"):
+        os.environ.pop(var, None)
+    state, sb, data = dp_parity.setup(batch, torch.bfloat16, drop_path=0.1)
+    ms = {"none": [_timed_steps(torch, state, sb, data, 10)]}
+
+    # (a) world 1 on NCCL, the environment torchrun --standalone would set
+    env = _torchrun_env(0, 1, _free_port())
+    os.environ.update(env)
+    if not mesh.maybe_init_distributed():
+        fail("maybe_init_distributed found no group in torchrun's environment")
+    backend = torch.distributed.get_backend()
+    say(f"phase 11 world 1: backend {backend}, world {mesh.process_count()}, device "
+        f"cuda:{torch.cuda.current_device()}")
+    if backend != "nccl" or mesh.process_count() != 1:
+        fail("world 1 on the card did not take NCCL")
+    ms["nccl"] = [_timed_steps(torch, state, sb, data, 10)]
+    out = tempfile.mkdtemp(prefix="chip_smoke_dp1_")
+    for counts in (A.LAUNCHES, O.LAUNCHES, mesh.COUNTS):
+        for k in counts:
+            counts[k] = 0
+    steps = 4
+    main(fixed_argv + ["--output", out])
+    torch.cuda.synchronize()
+    k1_a, k2_a, coll = dict(A.LAUNCHES), dict(O.LAUNCHES), dict(mesh.COUNTS)
+    _, _, losses = _trainer_log(out)
+    _, _, losses4 = _trainer_log(os.path.dirname(os.path.dirname(fixed_run)))
+    ms["nccl"].append(_timed_steps(torch, state, sb, data, 10))
+    ar_ms = _all_reduce_ms(torch, state)
+    mesh.destroy()
+    for k in env:
+        del os.environ[k]
+    say(f"phase 11 (a) main.main on NCCL world 1, phase 4's arguments: losses {losses}; "
+        f"phase 4's (no group) {losses4} ({'equal' if losses == losses4 else 'not equal'})")
+    say(f"phase 11 (a) launches: K1 {k1_a}, K2 {k2_a}; collectives {coll}")
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        fail(f"expected {steps} finite losses under NCCL world 1, got {losses}")
+    if k1_a["bwd"] != 14 * steps or k1_a["fwd"] < 14 * steps or \
+            k2_a["bwd"] != 4 * steps or k2_a["fwd"] < 4 * steps:
+        fail(f"K1 {k1_a} / K2 {k2_a} do not cover 14 / 4 layers a step under NCCL world 1")
+    if coll["grads"] != steps:
+        fail(f"the gradient all-reduce ran {coll['grads']} times in {steps} steps")
+    ms["none"].append(_timed_steps(torch, state, sb, data, 10))
+    none, nccl = sum(ms["none"]) / 2, sum(ms["nccl"]) / 2
+    say(f"phase 11 (d) volo_d1 train step b={batch} 224px bf16, drop-path 0.1, on {card}, "
+        f"in the order no group, NCCL world 1, (a), NCCL world 1, no group: no group "
+        f"{none:.2f} ms (runs {ms['none']}), NCCL world 1 {nccl:.2f} ms (runs "
+        f"{ms['nccl']}; {100 * (nccl / none - 1):+.1f} %); the gradient all-reduce alone "
+        f"(26.6 M f32 values: flatten, NCCL, copy back) {ar_ms:.3f} ms")
+    del state, sb, data
+    torch.cuda.empty_cache()
+
+    # (b, c) two gloo ranks sharing cuda:0
+    out = tempfile.mkdtemp(prefix="chip_smoke_dp2_")
+    argv = list(prog_argv)
+    argv[argv.index("--workers") + 1] = "3"
+    argv.append("--model-ema-bf16")       # the EMA trees' rounding must agree across ranks
+    with open(os.path.join(out, "argv.json"), "w") as f:
+        json.dump(argv, f)
+    port = _free_port()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, **_torchrun_env(rank, 2, port), AUTOPROG_DIST_BACKEND="gloo",
+                   AUTOPROG_TORCH_DEVICE="cuda:0")
+        with open(os.path.join(out, f"rank{rank}.err"), "w") as err:
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                           "--dist-worker", out], env=env,
+                                          stdout=subprocess.DEVNULL, stderr=err))
+    deadline = time.time() + 600
+    for p in procs:
+        try:
+            p.wait(timeout=max(deadline - time.time(), 1))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.wait()
+            fail("the 2-rank run did not end within 600 s")
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            err = open(os.path.join(out, f"rank{rank}.err")).read()
+            fail(f"gloo rank {rank} failed ({p.returncode}):\n{err[-4000:]}")
+    res = []
+    for rank in range(2):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            res.append(json.load(f))
+    r0, r1 = res
+    log = open(glob.glob(os.path.join(out, "out0", "train", "*", "log.txt"))[0]).read()
+    losses = [float(v) for v in re.findall(r"Train: \d+ \[\s*\d+/\d+\]\s+Loss: (\S+)", log)]
+    say(f"phase 11 (b) main_prog --auto-grow on 2 gloo ranks sharing cuda:0, global b=64: "
+        f"backends {[r['backend'] for r in res]}, devices {[r['device'] for r in res]}, "
+        f"{r0['wall']:.1f} s")
+    say(f"phase 11 (b) decisions (proposal, adopted): rank 0 {r0['decisions']}, rank 1 "
+        f"{r1['decisions']}; stages {[(h['r'], h['l']) for h in r0['history']]}")
+    say(f"phase 11 (b) losses (rank 0's log): {losses}")
+    for r in res:
+        say(f"phase 11 (b) rank {r['rank']}: K1 {r['k1']}, K2 {r['k2']}, collectives "
+            f"{r['collectives']}, files {len(r['files'])}")
+    if any(r["backend"] != "gloo" or r["device"] != "cuda:0" or r["world"] != 2 for r in res):
+        fail("the 2-rank run was not gloo on cuda:0")
+    if len(r0["decisions"]) != 1 or r0["decisions"][0][1] != r0["decisions"][0][0] or \
+            r1["decisions"][0][1] != r0["decisions"][0][0]:
+        fail("the ranks did not both adopt rank 0's decision")
+    if r0["history"] != r1["history"] or (r0["history"][-1]["r"], r0["history"][-1]["l"]) \
+            != (224, 18) or r0["arch"] != r1["arch"]:
+        fail("the ranks' stage histories differ or do not end at r=224, l=18")
+    if r0["digest"] != r1["digest"]:
+        fail("the ranks' parameters, BatchNorm stats or EMA trees are not bit-equal")
+    if len(losses) != 15 or not all(math.isfinite(v) for v in losses):
+        fail(f"expected 15 finite losses after the search, got {losses}")
+    for r in res:
+        if r["k1"]["bwd"] <= 0 or r["k1"]["fwd"] <= 0 or r["k2"]["bwd"] <= 0 or \
+                r["k2"]["fwd"] <= 0:
+            fail(f"rank {r['rank']} launched no K1 or K2: {r['k1']} {r['k2']}")
+        if r["collectives"]["grads"] != 20:
+            fail(f"rank {r['rank']}: {r['collectives']['grads']} gradient all-reduces in "
+                 f"20 train steps")
+    if r0["k1"] != r1["k1"] or r0["k2"] != r1["k2"]:
+        fail("the ranks launched K1 / K2 different numbers of times")
+    if "last.ckpt" not in {os.path.basename(f) for f in r0["files"]} or r1["files"]:
+        fail("checkpoints were not written by rank 0 alone")
+
+    # (c) the one-process step on all 32 images against the 2-rank one
+    state, sb, data = dp_parity.setup(32, torch.float32)
+    loss, grads, stats = dp_parity.dp_step(state, sb, data)
+    one_ms = _timed_steps(torch, state, sb, data, 5)
+    two = torch.load(os.path.join(out, "step_rank0.pt"))
+    rel = abs(two["loss"] - loss) / abs(loss)
+    say(f"phase 11 (c) volo_d1 f32 step, 32 images: loss one process {loss:.7f}, 2 gloo "
+        f"ranks {two['loss']:.7f} (rel {rel:.2e}); rank 1's state "
+        f"{'bit-equal' if r0['step_digest'] == r1['step_digest'] else 'NOT equal'} to rank 0's")
+    if rel > 1e-4 or r0["step_digest"] != r1["step_digest"]:
+        fail("the 2-rank f32 step's loss or state does not match")
+    _close_per_tensor("BatchNorm stat", two["stats"], {k: v.cpu() for k, v in stats.items()},
+                      1e-4)
+    total, per = dp_parity.grad_errors(two["grads"], grads)
+    stem, rest = dp_parity.worst(per, True), dp_parity.worst(per, False)
+    lim_all, lim_stem = dp_parity.RTOL_ALL, dp_parity.RTOL_STEM
+    say(f"phase 11 (c) the {len(grads)} all-reduced gradients against the one-process step: "
+        f"|g2 - g1| / |g1| over all of them {total:.2e} ({lim_all} allowed); worst stem "
+        f"tensor {stem[0]} {stem[1]:.2e} ({lim_stem} allowed: its gradient comes through "
+        f"BatchNorm's backward, whose sums over 401 408 values a channel cancel); worst other "
+        f"tensor {rest[0]} {rest[1]:.2e} ({lim_all} allowed); the {len(stats)} BatchNorm "
+        f"stats within |err| <= 1e-4 (|x| + max |x|)")
+    if total > lim_all or stem[1] > lim_stem or rest[1] > lim_all:
+        fail("the 2-rank step's gradients do not match the one-process step's")
+    say(f"phase 11 (d) f32 step b=32 on {card}: one process {one_ms:.2f} ms; two ranks "
+        f"sharing one card through the host (gloo), not a data-parallel speed: "
+        f"{r0['step_ms']:.2f} / {r1['step_ms']:.2f} ms, of which the gradient all-reduce "
+        f"alone {r0['all_reduce_ms']:.2f} ms")
+    say(f"phase 11: {time.time() - t_phase:.1f} s")
+    del state, sb, data
+    torch.cuda.empty_cache()
+    k1 = {s: k1_a[s] + r0["k1"][s] + r1["k1"][s] for s in ("fwd", "bwd")}
+    k2 = {s: k2_a[s] + r0["k2"][s] + r1["k2"][s] for s in ("fwd", "bwd")}
+    return k1, k2
+
+
 def _row(name, src, replaces, launches, err, t, key):
     lib = t.get("lib_" + key)
     return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -1641,11 +1983,12 @@ def main():
     phase_step_times(torch, card)
     ck_k1, ck_k2 = phase_checkpoint(torch, card, fixed_run, fixed_argv, prog_run, prog_argv)
     op_k1, op_k2 = phase_options(torch, card)
+    dp_k1, dp_k2 = phase_data_parallel(torch, card, fixed_run, fixed_argv, prog_argv)
     pal = "autoprog_tpu/ops/outlook_pallas.py"
     att = "autoprog_tpu/ops/attention_pallas.py"
-    k1 = {side: fixed[side] + prog_k1[side] + deit_k1[side] + ck_k1[side] + op_k1[side]
-          for side in ("fwd", "bwd")}
-    k2 = {side: fixed_k2[side] + prog_k2[side] + ck_k2[side] + op_k2[side]
+    k1 = {side: fixed[side] + prog_k1[side] + deit_k1[side] + ck_k1[side] + op_k1[side] +
+          dp_k1[side] for side in ("fwd", "bwd")}
+    k2 = {side: fixed_k2[side] + prog_k2[side] + ck_k2[side] + op_k2[side] + dp_k2[side]
           for side in ("fwd", "bwd")}
 
     def vrow(key, src, replaces):
@@ -1700,4 +2043,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-worker"]:
+        dist_worker(sys.argv[2])
+    else:
+        main()

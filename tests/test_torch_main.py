@@ -73,7 +73,7 @@ def test_import_leaves_jax_out():
             "assert len(names) > 30 and 'autoprog_tpu_torch.main_prog' in names, names\n"
             "for new in ('bench', 'models.vit', 'scripts.attn_variants',\n"
             "            'scripts.bench_attn', 'scripts.bench_attn_x', 'scripts.timing',\n"
-            "            'validate', 'finetune', 'train.flax_msgpack'):\n"
+            "            'validate', 'finetune', 'train.flax_msgpack', 'parallel.mesh'):\n"
             "    assert 'autoprog_tpu_torch.' + new in names, new\n"
             "for name in names:\n"
             "    importlib.import_module(name)\n"
