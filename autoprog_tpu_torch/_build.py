@@ -53,6 +53,8 @@ SIGNATURES = {
     # q, k, v, dout, dq, dk, dv, stats, scratch, strides of q, k, v, dout, B, n, H, d,
     # scale, dtype, stream
     "mhsa_bwd": (_I, [_P] * 9 + [_L] * 12 + [_I, _I, _I, _I, _F, _I, _P]),
+    # counts, len -> the number of kernels whose launches it counts
+    "mhsa_variant_launches": (_I, [_P, _I]),
     # qkv, out, B, n, C, H, scale, variant, stream
     "mhsa_variant_fwd": (_I, [_P, _P, _I, _I, _I, _I, _F, _I, _P]),
     # qkv, out, B, n, C, H, scale, G, phase, stream

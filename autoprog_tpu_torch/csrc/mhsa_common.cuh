@@ -29,11 +29,11 @@
 //
 // Two families of bodies share these rules. The streaming cells (fwd_cell,
 // bwd_dq_cell, bwd_dkv_cell) walk K and V in tiles of 64 keys through shared
-// memory with a barrier around every load; the schedule variants of
-// mhsa_variants.cu are built from them, and K1 / K5 run them above n = 256 or
-// head_dim 64. The resident helpers further down (cp.async tiles, ldmatrix
-// fragments, the cheap element-wise steps) are what the K1 / K5 kernels of
-// mhsa_qkv.cu run below that.
+// memory with a barrier around every load; K1 / K5 and the schedule variants
+// of mhsa_variants.cu run them above n = 256 or head_dim 64. The resident
+// bodies at the end (a whole cell in shared memory, cp.async tiles, ldmatrix
+// fragments, the cheap element-wise steps) are what K1 / K5 and the variants
+// run below that.
 
 #pragma once
 
@@ -41,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -788,6 +790,338 @@ template <int DP> constexpr size_t fwd_cell_smem(int W) { return tile_bytes(16 *
 template <int DP> constexpr size_t dq_cell_smem(int W) { return tile_bytes(32 * W + 2 * MK, DP); }
 template <int DP> constexpr size_t dkv_cell_smem(int W) {
     return tile_bytes(32 * W + 2 * NQ_ROWS<DP>, DP) + sizeof(float3) * NQ_ROWS<DP>;
+}
+
+// --------------------------------------------------- the resident bodies
+//
+// K1's resident path (mhsa_qkv.cu) and the resident variants of
+// mhsa_variants.cu: an (image, head) cell's K and V (backward: qs, K, V and
+// dO) whole in shared memory as tiles [16 steps][DP + PAD], steps =
+// ceil(n / 16) at run time, and each warp on 16 query rows (or 16 keys) at a
+// time, walking the tiles 16 rows a step. Each body below is one such walk
+// of one warp. What a kernel does around the walks (where the tiles come
+// from, which cell comes next, what it parks between walks) is its
+// schedule; the walks fix the arithmetic and its order, so every kernel
+// built from them, whatever its schedule, gives K1's bits.
+
+constexpr int RES_MAX_N = 256;  // the resident path takes n <= 256 ...
+constexpr int RES_MAX_D = 64;   // ... and head_dim <= 64; the rest streams
+
+inline bool resident_path(int n, int d) { return n <= RES_MAX_N && d <= RES_MAX_D; }
+
+// Warps per block. An SM's registers are four files of 16 K, one per
+// sub-core, and a block's warps are dealt round over them: the warps resident
+// on one sub-core bound the registers a thread may have (7 -> 72, 4 -> 128,
+// 3 -> 168, 2 -> 255). Forward: a block takes 16 W query rows of a cell, all
+// of them up to 7 groups of 16, then about half (9 -> 5, 13 -> 7, 16 -> 8),
+// and as many blocks are resident as make 28 warps at head_dim 32 (72
+// registers) and 14 at 64 (128 registers).
+template <int NS> constexpr int FWD_W = NS <= 7 ? NS : (NS + 1) / 2;
+template <int DP, int W> constexpr int RES_MIN_BLOCKS = (DP <= 32 ? 28 : 14) / W;
+
+template <int V> using IntC = std::integral_constant<int, V>;
+
+// f(IntC<W>()) with the forward's warps per block for `steps` 16-row steps
+template <typename F> int with_fwd_w(int steps, F&& f) {
+    if (steps <= 4) return f(IntC<FWD_W<4>>());
+    if (steps <= 7) return f(IntC<FWD_W<7>>());
+    if (steps <= 9) return f(IntC<FWD_W<9>>());
+    if (steps <= 13) return f(IntC<FWD_W<13>>());
+    return f(IntC<FWD_W<16>>());
+}
+
+// f(IntC<DP>(), IntC<W>(), IntC<MINB>()): the backward's padded head_dim,
+// warps per block and blocks per SM by head_dim and sequence length; the
+// registers of a thread (about 100 at head_dim 32, 160 at 64) bound the
+// warps on a sub-core
+template <typename F> int with_bwd_w(int d, int steps, F&& f) {
+    if (d <= 32) {
+        if (steps <= 4) return f(IntC<32>(), IntC<4>(), IntC<4>());
+        if (steps <= 7) return f(IntC<32>(), IntC<7>(), IntC<2>());
+        if (steps <= 9) return f(IntC<32>(), IntC<5>(), IntC<3>());
+        if (steps <= 13) return f(IntC<32>(), IntC<13>(), IntC<1>());
+        return f(IntC<32>(), IntC<16>(), IntC<1>());
+    }
+    if (steps <= 4) return f(IntC<64>(), IntC<4>(), IntC<3>());
+    if (steps <= 9 && steps > 7) return f(IntC<64>(), IntC<5>(), IntC<2>());
+    if (steps <= 13) return f(IntC<64>(), IntC<7>(), IntC<1>());
+    return f(IntC<64>(), IntC<8>(), IntC<1>());
+}
+
+// How a resident kernel is launched: buffers a block and blocks resident on
+// the card.
+struct Plan {
+    int nbuf, resident;
+};
+
+// Two buffers where the second costs no residency; with `second`, wherever
+// two fit in a block's shared memory, whatever residency they cost. `fixed`
+// is shared memory a block holds once, beside its buffers.
+template <typename K>
+cudaError_t make_plan(K kernel, int threads, size_t buf, size_t fixed, Plan& plan,
+                      bool second = false) {
+    int dev = 0, sms = 0, one = 0, two = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const bool fits2 = 2 * buf + fixed <= SMEM_LIMIT;
+    // the limit itself: a plan for a shorter sequence must not lower what a
+    // longer one was allowed
+    if (err == cudaSuccess) err = allow_smem(kernel, SMEM_LIMIT);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&one, kernel, threads, buf + fixed);
+    if (err == cudaSuccess && fits2)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&two, kernel, threads,
+                                                            2 * buf + fixed);
+    if (err != cudaSuccess) return err;
+    if (one < 1) return cudaErrorLaunchOutOfResources;
+    plan.nbuf = (second ? two >= 1 : two >= one) ? 2 : 1;
+    plan.resident = sms * (plan.nbuf == 2 ? two : one);
+    return cudaSuccess;
+}
+
+// The one cache of launch plans: per `key` < KEYS (whatever else sets the
+// kernel's shared memory) and per number of 16-key steps; a larger key is
+// planned at every call. `make(plan)` returns 0 or an error code; a plan is
+// cached once it succeeded (its `resident` is then at least 1).
+template <typename P, int KEYS, typename F>
+int cached_plan(P (&plans)[KEYS][17], int key, int steps, P& plan, F&& make) {
+    if (key < KEYS && plans[key][steps].resident != 0) {
+        plan = plans[key][steps];
+        return 0;
+    }
+    const int err = make(plan);
+    if (err == 0 && key < KEYS) plans[key][steps] = plan;
+    return err;
+}
+
+inline bool even_slab(const Slab<bf16>& s) {
+    return reinterpret_cast<uintptr_t>(s.p) % 4 == 0 && s.img % 2 == 0 && s.row % 2 == 0 &&
+           s.head % 2 == 0;
+}
+
+// what the forward's first sweep does with each score tile beyond its maximum
+struct NoPark {
+    __device__ __forceinline__ void operator()(int, float (&)[2][4]) const {}
+};
+
+// Forward, first sweep of a warp's 16 query rows (A fragments `aq`) over the
+// resident K: the row maxima, exact, of the masked scores, rounded to bf16
+// unless scores_f32 (rounding is monotone: the maximum of the rounded
+// scores). `park(kk, s)` sees each step's masked f32 scores.
+template <int DP, typename Park>
+__device__ __forceinline__ void res_row_max(float& m0, float& m1, const uint32_t (&aq)[DP / 16][4],
+                                            const bf16* sK, int steps, int n, int t, int lane,
+                                            int scores_f32, Park park) {
+    constexpr int LD = DP + PAD;
+    m0 = -INFINITY;
+    m1 = -INFINITY;
+#pragma unroll 2
+    for (int kk = 0; kk < steps; ++kk) {
+        float s[2][4];
+        mma_abt_frag<DP, 16>(s, aq, sK + kk * 16 * LD, lane);
+        mask_scores<16>(s, kk * 16, n, t);
+        park(kk, s);
+        m0 = fmaxf(m0, fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1])));
+        m1 = fmaxf(m1, fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3])));
+    }
+    m0 = quad_max(m0);
+    m1 = quad_max(m1);
+    if (!scores_f32) {
+        m0 = round_to<bf16>(m0);
+        m1 = round_to<bf16>(m1);
+    }
+}
+
+// Forward, second sweep: `scores(kk, s)` gives step kk's scores, rounded to
+// the score type and masked (K1 computes them again; a variant reads them
+// back); e = exp(s - max) with ml = max log2(e), z = rowsum(e), and
+// o = T(e) . V, 16 keys a step.
+template <int DP, typename Scores>
+__device__ __forceinline__ void res_exp_pv(float (&o)[DP / 8][4], float& z0, float& z1,
+                                           Scores scores, const bf16* sV, int steps, float ml0,
+                                           float ml1, int lane) {
+    constexpr int LD = DP + PAD;
+    z0 = 0.f;
+    z1 = 0.f;
+    zero_acc(o);
+#pragma unroll 2
+    for (int kk = 0; kk < steps; ++kk) {
+        float s[2][4];
+        scores(kk, s);
+        uint32_t e[1][4];
+        tile_exp2_pack<16>(e, s, ml0, ml1, z0, z1);
+        mma_pv_ld<DP, 16>(o, e, sV + kk * 16 * LD, lane);
+    }
+    z0 = quad_sum(z0);
+    z1 = quad_sum(z1);
+}
+
+// O = o / z, stored at rows r0.. of a row-major bf16 matrix (rows past
+// `rows` are skipped)
+template <int DP>
+__device__ __forceinline__ void res_store_out(bf16* __restrict__ dst, long long row_stride,
+                                              float (&o)[DP / 8][4], float z0, float z1, int r0,
+                                              int rows, int d, int g, int t, int pk) {
+    const float rz0 = 1.f / z0, rz1 = 1.f / z1;
+#pragma unroll
+    for (int dt = 0; dt < DP / 8; ++dt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[dt][c] *= c < 2 ? rz0 : rz1;
+    store_rows_pk<DP>(dst, row_stride, o, r0, rows, d, g, t, pk);
+}
+
+// The backward's statistics of a warp's 16 query rows (g and g + 8):
+// ml = rowmax log2(e), rz = 1 / z, ra = rowsum(dP p).
+struct RowStats {
+    float ml0, ml1, rz0, rz1, ra, rb;
+};
+
+// Backward, phase A's first walk for the warp's query rows r0.. (A fragments
+// `aq` of qs and `ado` of dO): the row maxima (the forward's from `st_in`,
+// or a sweep of their own), then rowsum(dP e), and z where the forward saved
+// none. Nothing of a row is held between the walks.
+template <int DP>
+__device__ __forceinline__ RowStats bwd_row_stats(const uint32_t (&aq)[DP / 16][4],
+                                                  const uint32_t (&ado)[DP / 16][4],
+                                                  const bf16* sK, const bf16* sV,
+                                                  const float2* st_in, int r0, int steps, int n,
+                                                  int g, int t, int lane, int scores_f32) {
+    constexpr int LD = DP + PAD;
+    float m0, m1, z0 = 0.f, z1 = 0.f;
+    const bool saved = st_in != nullptr;
+    if (saved) {  // by the forward
+        const float2 a = r0 + g < n ? st_in[r0 + g] : make_float2(0.f, 1.f);
+        const float2 c = r0 + g + 8 < n ? st_in[r0 + g + 8] : make_float2(0.f, 1.f);
+        m0 = a.x, z0 = a.y, m1 = c.x, z1 = c.y;
+    } else {
+        m0 = m1 = -INFINITY;
+        for (int kk = 0; kk < steps; ++kk) {
+            float s[2][4];
+            mma_abt_frag<DP, 16>(s, aq, sK + kk * 16 * LD, lane);
+            mask_scores<16>(s, kk * 16, n, t);
+            m0 = fmaxf(m0, fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1])));
+            m1 = fmaxf(m1, fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3])));
+        }
+        m0 = quad_max(m0);
+        m1 = quad_max(m1);
+        if (!scores_f32) {
+            m0 = round_to<bf16>(m0);
+            m1 = round_to<bf16>(m1);
+        }
+    }
+    const float ml0 = m0 * LOG2E, ml1 = m1 * LOG2E;
+    // first walk: rowsum(dP e), and z where the forward saved none
+    float ra = 0.f, rb = 0.f, y0 = 0.f, y1 = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < steps; ++kk) {
+        float s[2][4], dp[2][4];
+        mma_abt_frag<DP, 16>(s, aq, sK + kk * 16 * LD, lane);
+        mma_abt_frag<DP, 16>(dp, ado, sV + kk * 16 * LD, lane);
+        if (!scores_f32) round_scores<16>(s);
+        mask_scores<16>(s, kk * 16, n, t);
+        tile_exp2<16>(s, ml0, ml1, y0, y1);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            ra = fmaf(s[j][0], dp[j][0], ra);
+            ra = fmaf(s[j][1], dp[j][1], ra);
+            rb = fmaf(s[j][2], dp[j][2], rb);
+            rb = fmaf(s[j][3], dp[j][3], rb);
+        }
+    }
+    if (!saved) {
+        z0 = quad_sum(y0);
+        z1 = quad_sum(y1);
+    }
+    const float rz0 = 1.f / z0, rz1 = 1.f / z1;
+    return RowStats{ml0, ml1, rz0, rz1, quad_sum(ra) * rz0, quad_sum(rb) * rz1};
+}
+
+// Backward, phase A's second walk: with the scores, exp and dP of each step
+// computed again, dS = T(p (dP - rowsum)) and acc = (dS . K) scale.
+template <int DP>
+__device__ __forceinline__ void bwd_row_dq(float (&acc)[DP / 8][4], const RowStats& r,
+                                           const uint32_t (&aq)[DP / 16][4],
+                                           const uint32_t (&ado)[DP / 16][4], const bf16* sK,
+                                           const bf16* sV, int steps, int n, int t, int lane,
+                                           int scores_f32, float scale) {
+    constexpr int LD = DP + PAD;
+    zero_acc(acc);
+#pragma unroll 2
+    for (int kk = 0; kk < steps; ++kk) {
+        float s[2][4], dp[2][4];
+        mma_abt_frag<DP, 16>(s, aq, sK + kk * 16 * LD, lane);
+        mma_abt_frag<DP, 16>(dp, ado, sV + kk * 16 * LD, lane);
+        if (!scores_f32) round_scores<16>(s);
+        mask_scores<16>(s, kk * 16, n, t);
+        float u0 = 0.f, u1 = 0.f;
+        tile_exp2<16>(s, r.ml0, r.ml1, u0, u1);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+                dp[j][c] = s[j][c] * (c < 2 ? r.rz0 : r.rz1) * (dp[j][c] - (c < 2 ? r.ra : r.rb));
+        uint32_t ds[1][4];
+        pack_acc<16>(ds, dp);
+        mma_pv_ld<DP, 16>(acc, ds, sK + kk * 16 * LD, lane);  // T(dS) . K
+    }
+    scale_acc(acc, scale);
+}
+
+// A warp's row statistics into sSt for phase B; a row past n gets max = +inf:
+// its p is exp(-inf) = 0 there
+__device__ __forceinline__ void put_row_stats(float3* sSt, const RowStats& r, int r0, int n, int g,
+                                              int t) {
+    if (t == 0) {
+        const float3 none = make_float3(INFINITY, 1.f, 0.f);
+        sSt[r0 + g] = r0 + g < n ? make_float3(r.ml0, r.rz0, r.ra) : none;
+        sSt[r0 + g + 8] = r0 + g + 8 < n ? make_float3(r.ml1, r.rz1, r.rb) : none;
+    }
+}
+
+__device__ __forceinline__ RowStats get_row_stats(const float3* sSt, int r0, int g) {
+    const float3 a = sSt[r0 + g], c = sSt[r0 + g + 8];
+    return RowStats{a.x, c.x, a.y, c.y, a.z, c.z};
+}
+
+// Backward, phase B for the warp's 16 keys j0..: over the NN queries 16 at a
+// time, S^T and dP^T (rows the keys, columns the queries), p and dS from the
+// statistics in sSt, gv = T(p)^T . dO and gk = T(dS)^T . qs.
+template <int DP>
+__device__ __forceinline__ void bwd_key_grads(float (&gk)[DP / 8][4], float (&gv)[DP / 8][4],
+                                              const bf16* sQ, const bf16* sK, const bf16* sV,
+                                              const bf16* sDO, const float3* sSt, int j0, int NN,
+                                              int t, int lane, int scores_f32) {
+    constexpr int LD = DP + PAD;
+    zero_acc(gk);
+    zero_acc(gv);
+    uint32_t ak[DP / 16][4], av[DP / 16][4];  // the keys' K and V rows, A of S^T, dP^T
+    load_a<DP>(ak, sK, j0, lane);
+    load_a<DP>(av, sV, j0, lane);
+#pragma unroll 2
+    for (int i0 = 0; i0 < NN; i0 += 16) {
+        float s[2][4], dp[2][4];
+        mma_abt_frag<DP, 16>(s, ak, sQ + i0 * LD, lane);
+        mma_abt_frag<DP, 16>(dp, av, sDO + i0 * LD, lane);
+        if (!scores_f32) round_scores<16>(s);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+                const float3 r = sSt[i0 + j * 8 + 2 * t + c];  // of query column c
+#pragma unroll
+                for (int hh = 0; hh < 2; ++hh) {
+                    const float p = fast_exp2(fmaf(s[j][c + 2 * hh], LOG2E, -r.x)) * r.y;
+                    s[j][c + 2 * hh] = p;
+                    dp[j][c + 2 * hh] = p * (dp[j][c + 2 * hh] - r.z);
+                }
+            }
+        uint32_t pa[1][4], da[1][4];
+        pack_acc<16>(pa, s);
+        pack_acc<16>(da, dp);
+        mma_pv_ld<DP, 16>(gv, pa, sDO + i0 * LD, lane);  // T(p)^T . dO
+        mma_pv_ld<DP, 16>(gk, da, sQ + i0 * LD, lane);   // T(dS)^T . qs
+    }
 }
 
 }  // namespace

@@ -38,7 +38,7 @@
 // times backward.
 //
 // The design, for bf16 with n <= 256 and head_dim <= 64 (the resident path;
-// the switch is by shape alone, RES_MAX_N and RES_MAX_D below):
+// the switch is by shape alone, RES_MAX_N and RES_MAX_D of mhsa_common.cuh):
 //   * A block takes whole (image, head) cells. K and V of the cell (and the
 //     block's q rows; in the backward all of q, k, v and dO) are fetched once
 //     by cp.async into shared memory, K first, so that q k^T starts while V
@@ -474,22 +474,8 @@ mhsa_bwd_dkv_mma(Slab<const bf16> q, Slab<const bf16> k, Slab<const bf16> v,
 
 // ------------------------------ bf16, resident path: whole cells per block
 //
-// K and V of an (image, head) cell stay in shared memory as tiles of
-// [16 steps][DP + PAD] bf16, steps = ceil(n / 16) at run time; each warp owns
-// 16 query rows (or 16 keys) at a time and walks the tiles 16 rows a step.
-
-constexpr int RES_MAX_N = 256;  // the resident path takes n <= 256 ...
-constexpr int RES_MAX_D = 64;   // ... and head_dim <= 64; the rest streams
-
-// Warps per block. An SM's registers are four files of 16 K, one per
-// sub-core, and a block's warps are dealt round over them: the warps resident
-// on one sub-core bound the registers a thread may have (7 -> 72, 4 -> 128,
-// 3 -> 168, 2 -> 255). Forward: a block takes 16 W query rows of a cell, all
-// of them up to 7 groups of 16, then about half (9 -> 5, 13 -> 7, 16 -> 8),
-// and as many blocks are resident as make 28 warps at head_dim 32 (72
-// registers) and 14 at 64 (128 registers).
-template <int NS> constexpr int FWD_W = NS <= 7 ? NS : (NS + 1) / 2;
-template <int DP, int W> constexpr int RES_MIN_BLOCKS = (DP <= 32 ? 28 : 14) / W;
+// The resident bodies of mhsa_common.cuh, one cell (or a chunk of its query
+// rows) per work item.
 
 // Forward in two sweeps over the resident K: the first keeps only the row
 // maxima, the second computes the same scores again, bit for bit, and goes on
@@ -540,50 +526,23 @@ mhsa_fwd_res(Slab<const bf16> q, Slab<const bf16> k, Slab<const bf16> v, Slab<bf
         __syncthreads();
         const bool active = q0 + wr < n;
         uint32_t aq[DP / 16][4];
-        float m0 = -INFINITY, m1 = -INFINITY;
+        float m0, m1;
         if (active) {
             load_a<DP>(aq, sQ, wr, lane);
-#pragma unroll 2
-            for (int kk = 0; kk < steps; ++kk) {
-                float s[2][4];
-                mma_abt_frag<DP, 16>(s, aq, sK + kk * 16 * LD, lane);
-                mask_scores<16>(s, kk * 16, n, t);
-                m0 = fmaxf(m0, fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1])));
-                m1 = fmaxf(m1, fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3])));
-            }
-            m0 = quad_max(m0);
-            m1 = quad_max(m1);
-            if (!scores_f32) {  // rounding is monotone: the maximum of the rounded scores
-                m0 = round_to<bf16>(m0);
-                m1 = round_to<bf16>(m1);
-            }
+            res_row_max<DP>(m0, m1, aq, sK, steps, n, t, lane, scores_f32, NoPark());
         }
         if (ahead) cp_async_wait<2>(); else cp_async_wait<0>();  // V is here
         __syncthreads();
         if (active) {
-            const float ml0 = m0 * LOG2E, ml1 = m1 * LOG2E;
-            float z0 = 0.f, z1 = 0.f;
-            float o[DP / 8][4];
-            zero_acc(o);
-#pragma unroll 2
-            for (int kk = 0; kk < steps; ++kk) {
-                float s[2][4];
+            auto again = [&](int kk, float (&s)[2][4]) {
                 mma_abt_frag<DP, 16>(s, aq, sK + kk * 16 * LD, lane);
                 if (!scores_f32) round_scores<16>(s);
                 mask_scores<16>(s, kk * 16, n, t);
-                uint32_t e[1][4];
-                tile_exp2_pack<16>(e, s, ml0, ml1, z0, z1);
-                mma_pv_ld<DP, 16>(o, e, sV + kk * 16 * LD, lane);
-            }
-            z0 = quad_sum(z0);
-            z1 = quad_sum(z1);
-            const float rz0 = 1.f / z0, rz1 = 1.f / z1;
-#pragma unroll
-            for (int dt = 0; dt < DP / 8; ++dt)
-#pragma unroll
-                for (int c = 0; c < 4; ++c) o[dt][c] *= c < 2 ? rz0 : rz1;
-            store_rows_pk<DP>(out.at(b, h) + (long long)q0 * out.row, out.row, o, wr, n - q0, d,
-                              g, t, pk);
+            };
+            float z0, z1, o[DP / 8][4];
+            res_exp_pv<DP>(o, z0, z1, again, sV, steps, m0 * LOG2E, m1 * LOG2E, lane);
+            res_store_out<DP>(out.at(b, h) + (long long)q0 * out.row, out.row, o, z0, z1, wr,
+                              n - q0, d, g, t, pk);
             if (fst != nullptr && t == 0) {
                 float2* st = fst + (size_t)cell * n + q0 + wr + g;
                 if (q0 + wr + g < n) st[0] = make_float2(m0, z0);
@@ -653,83 +612,12 @@ mhsa_bwd_res(Slab<const bf16> q, Slab<const bf16> k, Slab<const bf16> v, Slab<co
             uint32_t aq[DP / 16][4], ado[DP / 16][4];  // the rows' qs and dO
             load_a<DP>(aq, sQ, r0, lane);
             load_a<DP>(ado, sDO, r0, lane);
-            float m0, m1, z0 = 0.f, z1 = 0.f;
-            const bool saved = st_in != nullptr;
-            if (saved) {  // by the forward
-                const float2 a = r0 + g < n ? st_in[r0 + g] : make_float2(0.f, 1.f);
-                const float2 c = r0 + g + 8 < n ? st_in[r0 + g + 8] : make_float2(0.f, 1.f);
-                m0 = a.x, z0 = a.y, m1 = c.x, z1 = c.y;
-            } else {
-                m0 = m1 = -INFINITY;
-                for (int kk = 0; kk < steps; ++kk) {
-                    float s[2][4];
-                    mma_abt_frag<DP, 16>(s, aq, sK + kk * 16 * LD, lane);
-                    mask_scores<16>(s, kk * 16, n, t);
-                    m0 = fmaxf(m0, fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1])));
-                    m1 = fmaxf(m1, fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3])));
-                }
-                m0 = quad_max(m0);
-                m1 = quad_max(m1);
-                if (!scores_f32) {
-                    m0 = round_to<bf16>(m0);
-                    m1 = round_to<bf16>(m1);
-                }
-            }
-            const float ml0 = m0 * LOG2E, ml1 = m1 * LOG2E;
-            // first walk: rowsum(dP e), and z where the forward saved none
-            float ra = 0.f, rb = 0.f, y0 = 0.f, y1 = 0.f;
-#pragma unroll 2
-            for (int kk = 0; kk < steps; ++kk) {
-                float s[2][4], dp[2][4];
-                mma_abt_frag<DP, 16>(s, aq, sK + kk * 16 * LD, lane);
-                mma_abt_frag<DP, 16>(dp, ado, sV + kk * 16 * LD, lane);
-                if (!scores_f32) round_scores<16>(s);
-                mask_scores<16>(s, kk * 16, n, t);
-                tile_exp2<16>(s, ml0, ml1, y0, y1);
-#pragma unroll
-                for (int j = 0; j < 2; ++j) {
-                    ra = fmaf(s[j][0], dp[j][0], ra);
-                    ra = fmaf(s[j][1], dp[j][1], ra);
-                    rb = fmaf(s[j][2], dp[j][2], rb);
-                    rb = fmaf(s[j][3], dp[j][3], rb);
-                }
-            }
-            if (!saved) {
-                z0 = quad_sum(y0);
-                z1 = quad_sum(y1);
-            }
-            const float rz0 = 1.f / z0, rz1 = 1.f / z1;
-            ra = quad_sum(ra) * rz0;  // rowsum(dP p)
-            rb = quad_sum(rb) * rz1;
-            // second walk: dS = T(p (dP - rowsum)) and dQ = (dS . K) scale
+            const RowStats r =
+                bwd_row_stats<DP>(aq, ado, sK, sV, st_in, r0, steps, n, g, t, lane, scores_f32);
             float acc[DP / 8][4];
-            zero_acc(acc);
-#pragma unroll 2
-            for (int kk = 0; kk < steps; ++kk) {
-                float s[2][4], dp[2][4];
-                mma_abt_frag<DP, 16>(s, aq, sK + kk * 16 * LD, lane);
-                mma_abt_frag<DP, 16>(dp, ado, sV + kk * 16 * LD, lane);
-                if (!scores_f32) round_scores<16>(s);
-                mask_scores<16>(s, kk * 16, n, t);
-                float u0 = 0.f, u1 = 0.f;
-                tile_exp2<16>(s, ml0, ml1, u0, u1);
-#pragma unroll
-                for (int j = 0; j < 2; ++j)
-#pragma unroll
-                    for (int c = 0; c < 4; ++c)
-                        dp[j][c] = s[j][c] * (c < 2 ? rz0 : rz1) * (dp[j][c] - (c < 2 ? ra : rb));
-                uint32_t ds[1][4];
-                pack_acc<16>(ds, dp);
-                mma_pv_ld<DP, 16>(acc, ds, sK + kk * 16 * LD, lane);  // T(dS) . K
-            }
-            scale_acc(acc, scale);
+            bwd_row_dq<DP>(acc, r, aq, ado, sK, sV, steps, n, t, lane, scores_f32, scale);
             store_rows_pk<DP>(dq.at(b, h), dq.row, acc, r0, n, d, g, t, pk);
-            if (t == 0) {
-                // a row past n gets max = +inf: its p is exp(-inf) = 0 in phase B
-                const float3 none = make_float3(INFINITY, 1.f, 0.f);
-                sSt[r0 + g] = r0 + g < n ? make_float3(ml0, rz0, ra) : none;
-                sSt[r0 + g + 8] = r0 + g + 8 < n ? make_float3(ml1, rz1, rb) : none;
-            }
+            put_row_stats(sSt, r, r0, n, g, t);
         }
         __syncthreads();
 
@@ -737,36 +625,7 @@ mhsa_bwd_res(Slab<const bf16> q, Slab<const bf16> k, Slab<const bf16> v, Slab<co
         for (int kg = warp; kg < steps; kg += W) {
             const int j0 = kg * 16;
             float gk[DP / 8][4], gv[DP / 8][4];
-            zero_acc(gk);
-            zero_acc(gv);
-            uint32_t ak[DP / 16][4], av[DP / 16][4];  // the keys' K and V rows, A of S^T, dP^T
-            load_a<DP>(ak, sK, j0, lane);
-            load_a<DP>(av, sV, j0, lane);
-#pragma unroll 2
-            for (int i0 = 0; i0 < NN; i0 += 16) {
-                // S^T and dP^T: rows are this warp's keys, columns 16 queries
-                float s[2][4], dp[2][4];
-                mma_abt_frag<DP, 16>(s, ak, sQ + i0 * LD, lane);
-                mma_abt_frag<DP, 16>(dp, av, sDO + i0 * LD, lane);
-                if (!scores_f32) round_scores<16>(s);
-#pragma unroll
-                for (int j = 0; j < 2; ++j)
-#pragma unroll
-                    for (int c = 0; c < 2; ++c) {
-                        const float3 r = sSt[i0 + j * 8 + 2 * t + c];  // of query column c
-#pragma unroll
-                        for (int hh = 0; hh < 2; ++hh) {
-                            const float p = fast_exp2(fmaf(s[j][c + 2 * hh], LOG2E, -r.x)) * r.y;
-                            s[j][c + 2 * hh] = p;
-                            dp[j][c + 2 * hh] = p * (dp[j][c + 2 * hh] - r.z);
-                        }
-                    }
-                uint32_t pa[1][4], da[1][4];
-                pack_acc<16>(pa, s);
-                pack_acc<16>(da, dp);
-                mma_pv_ld<DP, 16>(gv, pa, sDO + i0 * LD, lane);  // T(p)^T . dO
-                mma_pv_ld<DP, 16>(gk, da, sQ + i0 * LD, lane);   // T(dS)^T . qs
-            }
+            bwd_key_grads<DP>(gk, gv, sQ, sK, sV, sDO, sSt, j0, NN, t, lane, scores_f32);
             store_rows_pk<DP>(dk.at(b, h), dk.row, gk, j0, n, d, g, t, pk);
             store_rows_pk<DP>(dv.at(b, h), dv.row, gv, j0, n, d, g, t, pk);
         }
@@ -797,49 +656,16 @@ struct Operands {
     int B, n, H, d;
 };
 
-// How a resident-path kernel is launched: buffers a block (2 where the
-// second costs no residency) and blocks resident on the card.
-struct Plan {
-    int nbuf, resident;
-};
-
-template <typename K>
-cudaError_t make_plan(K kernel, int threads, size_t buf, size_t fixed, Plan& plan) {
-    int dev = 0, sms = 0, one = 0, two = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const bool fits2 = 2 * buf + fixed <= SMEM_LIMIT;
-    // the limit itself: a plan for a shorter sequence must not lower what a
-    // longer one was allowed
-    if (err == cudaSuccess) err = allow_smem(kernel, SMEM_LIMIT);
-    if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&one, kernel, threads, buf + fixed);
-    if (err == cudaSuccess && fits2)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&two, kernel, threads,
-                                                            2 * buf + fixed);
-    if (err != cudaSuccess) return err;
-    if (one < 1) return cudaErrorLaunchOutOfResources;
-    plan.nbuf = two >= one ? 2 : 1;
-    plan.resident = sms * one;
-    return cudaSuccess;
-}
-
-bool even_slab(const Slab<bf16>& s) {
-    return reinterpret_cast<uintptr_t>(s.p) % 4 == 0 && s.img % 2 == 0 && s.row % 2 == 0 &&
-           s.head % 2 == 0;
-}
-
 template <int DP, int W>
 int fwd_res(const Operands<bf16>& a, float scale, int scores_f32, int vec, cudaStream_t stream) {
     const int steps = ceil_div(a.n, 16);
     const size_t buf = tile_bytes(16 * W + 32 * steps, DP);
-    static Plan plans[17] = {};  // per number of 16-key steps
-    Plan& plan = plans[steps];
-    if (plan.nbuf == 0) {
-        const cudaError_t err = make_plan(mhsa_fwd_res<DP, W>, 32 * W, buf, 0, plan);
-        if (err != cudaSuccess) return (int)err;
-    }
+    static Plan plans[1][17] = {};
+    Plan plan{};
+    const int err = cached_plan(plans, 0, steps, plan, [&](Plan& p) {
+        return (int)make_plan(mhsa_fwd_res<DP, W>, 32 * W, buf, 0, p);
+    });
+    if (err != 0) return err;
     const int chunks = ceil_div(steps, W), items = a.B * a.H * chunks;
     const int pk = a.d % 2 == 0 && even_slab(a.out);
     mhsa_fwd_res<DP, W><<<min(items, plan.resident), 32 * W, plan.nbuf * buf, stream>>>(
@@ -850,24 +676,21 @@ int fwd_res(const Operands<bf16>& a, float scale, int scores_f32, int vec, cudaS
 
 template <int DP>
 int fwd_res_steps(const Operands<bf16>& a, float scale, int scores_f32, int vec, cudaStream_t s) {
-    const int steps = ceil_div(a.n, 16);
-    if (steps <= 4) return fwd_res<DP, FWD_W<4>>(a, scale, scores_f32, vec, s);
-    if (steps <= 7) return fwd_res<DP, FWD_W<7>>(a, scale, scores_f32, vec, s);
-    if (steps <= 9) return fwd_res<DP, FWD_W<9>>(a, scale, scores_f32, vec, s);
-    if (steps <= 13) return fwd_res<DP, FWD_W<13>>(a, scale, scores_f32, vec, s);
-    return fwd_res<DP, FWD_W<16>>(a, scale, scores_f32, vec, s);
+    return with_fwd_w(ceil_div(a.n, 16), [&](auto w) {
+        return fwd_res<DP, decltype(w)::value>(a, scale, scores_f32, vec, s);
+    });
 }
 
 template <int DP, int W, int MINB>
 int bwd_res(const Operands<bf16>& a, float scale, int scores_f32, int vec, cudaStream_t stream) {
     const int steps = ceil_div(a.n, 16);
     const size_t buf = tile_bytes(64 * steps, DP), fixed = sizeof(float3) * 16 * steps;
-    static Plan plans[17] = {};  // per number of 16-key steps
-    Plan& plan = plans[steps];
-    if (plan.nbuf == 0) {
-        const cudaError_t err = make_plan(mhsa_bwd_res<DP, W, MINB>, 32 * W, buf, fixed, plan);
-        if (err != cudaSuccess) return (int)err;
-    }
+    static Plan plans[1][17] = {};
+    Plan plan{};
+    const int err = cached_plan(plans, 0, steps, plan, [&](Plan& p) {
+        return (int)make_plan(mhsa_bwd_res<DP, W, MINB>, 32 * W, buf, fixed, p);
+    });
+    if (err != 0) return err;
     const int items = a.B * a.H;
     const int pk = a.d % 2 == 0 && even_slab(a.dq) && even_slab(a.dk) && even_slab(a.dv);
     mhsa_bwd_res<DP, W, MINB>
@@ -877,22 +700,11 @@ int bwd_res(const Operands<bf16>& a, float scale, int scores_f32, int vec, cudaS
     return (int)cudaGetLastError();
 }
 
-// warps per block and blocks per SM by head_dim and sequence length: the
-// registers of a thread (about 100 at head_dim 32, 160 at 64) bound the
-// warps on a sub-core
 int bwd_res_steps(const Operands<bf16>& a, float scale, int scores_f32, int vec, cudaStream_t s) {
-    const int steps = ceil_div(a.n, 16);
-    if (a.d <= 32) {
-        if (steps <= 4) return bwd_res<32, 4, 4>(a, scale, scores_f32, vec, s);
-        if (steps <= 7) return bwd_res<32, 7, 2>(a, scale, scores_f32, vec, s);
-        if (steps <= 9) return bwd_res<32, 5, 3>(a, scale, scores_f32, vec, s);
-        if (steps <= 13) return bwd_res<32, 13, 1>(a, scale, scores_f32, vec, s);
-        return bwd_res<32, 16, 1>(a, scale, scores_f32, vec, s);
-    }
-    if (steps <= 4) return bwd_res<64, 4, 3>(a, scale, scores_f32, vec, s);
-    if (steps <= 9 && steps > 7) return bwd_res<64, 5, 2>(a, scale, scores_f32, vec, s);
-    if (steps <= 13) return bwd_res<64, 7, 1>(a, scale, scores_f32, vec, s);
-    return bwd_res<64, 8, 1>(a, scale, scores_f32, vec, s);
+    return with_bwd_w(a.d, ceil_div(a.n, 16), [&](auto dp, auto w, auto minb) {
+        return bwd_res<decltype(dp)::value, decltype(w)::value, decltype(minb)::value>(
+            a, scale, scores_f32, vec, s);
+    });
 }
 
 template <int DP>
@@ -971,8 +783,6 @@ int can_vec(const Operands<bf16>& a, bool backward) {
     if (backward) ok = ok && slab_vec_ok(a.dout);
     return ok ? 1 : 0;
 }
-
-bool resident_path(int n, int d) { return n <= RES_MAX_N && d <= RES_MAX_D; }
 
 template <typename T>
 int run_fwd(const Operands<T>& a, float scale, int scores_f32, cudaStream_t s);

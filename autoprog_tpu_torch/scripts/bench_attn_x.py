@@ -3,32 +3,34 @@ the JAX package's `scripts/bench_attn_x.py` (`make_variant` and its table).
 
     python -m autoprog_tpu_torch.scripts.bench_attn_x [B]
 
-The variants ask how much independent work a block should carry, without
-changing the math: `G` images per block (grid z is B / G; the block walks
-its G images for its (tile, head)), in two orders:
+The variants ask, without changing the math, how much independent work a
+block should carry and in which order: a work item is G cells of one head
+(images b .. b + G - 1), in two orders:
 
-  loop   one image after the other, the streaming body each time (one 64-row
-         tile, K and V in tiles of 64 keys: K1's first schedule, which
-         `loop` with G = 1 is exactly);
-  phase  the QK^T of all G cells into shared memory, then all softmaxes,
-         then all T(e) . V; the backward in the same manner.
+  loop   one image after the other, K1's body each time, the next image's
+         tiles in flight in a second buffer;
+  phase  the q k^T of all G cells with the scores parked in shared memory,
+         then all softmaxes, then all T(e) . V; the backward computes the row
+         statistics of all G cells first, then dS, dQ, dK and dV of each.
 
 `make_variant(order, G, heads, scale)` returns an attention function on the
 raw qkv projection [B, n, 3C] -> [B, n, C] with its own backward; the kernels
-are in `csrc/mhsa_variants.cu` (bf16, f32 scores: the variants never round
-the scores). In the JAX script both orders share the phase-ordered backward;
-here the order applies to the backward as well. A G whose parked rows do not
-fit a block's shared memory is refused with ValueError, not shrunk.
+are in `csrc/mhsa_variants.cu` (bf16, f32 scores). At the resident shapes
+(n <= 256, head_dim <= 64) they are built from K1's resident walks and equal
+K1 at f32 scores bit for bit, forward and backward, as the JAX script's
+variants equal its shipped kernel; above them they run K1's streaming cells
+in 64-row tiles (`loop` with G = 1 is that path exactly, and every variant
+equals it bit for bit). In the JAX script both orders share the
+phase-ordered backward; here the order applies to the backward as well. A G
+whose parked rows do not fit a block's shared memory is refused with
+ValueError, not shrunk.
 
 The table: K1 at its default score type and at f32 scores, then
 `phase_img{1,2,4}` and `loop_img{2,4}`, forward and forward + backward
 (CUDA events after a warm-up), and each variant's largest difference from K1
-at f32 scores (the JAX script checks against `mhsa_fused_qkv` at its default,
-bf16 scores, which variants with f32 scores cannot equal; on the card K1's
-resident path differs from the variants within 2 ulp of bf16, on the CPU the
-twins are equal). Without a CUDA
-device the script raises unless AUTOPROG_TORCH_DEVICE=cpu, where it runs the
-plain twins at B = 4.
+at f32 scores and whether it is bit for bit. Without a CUDA device the script
+raises unless AUTOPROG_TORCH_DEVICE=cpu, where it runs the plain twins at
+B = 4.
 """
 
 from __future__ import annotations
@@ -41,12 +43,15 @@ import torch
 
 from autoprog_tpu_torch.ops import attention as A
 from autoprog_tpu_torch.platform import default_device
-from autoprog_tpu_torch.scripts.attn_variants import check_bf16_qkv
+from autoprog_tpu_torch.scripts.attn_variants import check_bf16_qkv, kernel_launches, launched
 from autoprog_tpu_torch.scripts.timing import card_name, time_call
 
 ORDERS = ("phase", "loop")
 #: kernel launches per "<order>_img<G>_fwd" / "..._bwd" (twins are not counted)
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
+#: the same per ("<order>_img<G>_fwd" / "..._bwd", the kernels the call
+#: launched), as `attn_variants.RAN`
+RAN: "collections.Counter[tuple]" = collections.Counter()
 
 
 def variant_name(order: str, G: int) -> str:
@@ -79,12 +84,15 @@ def _launch_group_fwd(order: str, G: int, qkv: torch.Tensor, heads: int,
     _check(order, G, qkv, heads)
     B, n, C3 = qkv.shape
     out = torch.empty(B, n, C3 // 3, dtype=qkv.dtype, device=qkv.device)
+    lib = _build.load()
+    before = kernel_launches(lib)
     with torch.cuda.device(qkv.device):
-        rc = _build.load().mhsa_group_fwd(
+        rc = lib.mhsa_group_fwd(
             qkv.data_ptr(), out.data_ptr(), B, n, C3 // 3, heads, float(scale), G,
             int(order == "phase"), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"mhsa_group_fwd({variant_name(order, G)})")
     LAUNCHES[variant_name(order, G) + "_fwd"] += 1
+    RAN[variant_name(order, G) + "_fwd", launched(lib, before)] += 1
     return out
 
 
@@ -99,14 +107,18 @@ def _launch_group_bwd(order: str, G: int, qkv: torch.Tensor, dout: torch.Tensor,
         raise ValueError(f"{variant_name(order, G)} backward: dout {tuple(dout.shape)} "
                          f"{dout.dtype} does not match qkv {tuple(qkv.shape)} {qkv.dtype}")
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty(B * heads * n * 3, dtype=torch.float32, device=qkv.device)
+    lib = _build.load()
+    before = kernel_launches(lib)
     with torch.cuda.device(qkv.device):
-        rc = _build.load().mhsa_group_bwd(
-            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B, n,
-            C3 // 3, heads, float(scale), G, int(order == "phase"),
-            torch.cuda.current_stream().cuda_stream)
+        # the streaming kernels' two passes share row statistics through it
+        stats = A._scratch(lib, qkv, B, heads, n, C3 // 3 // heads)
+        rc = lib.mhsa_group_bwd(
+            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+            None if stats is None else stats.data_ptr(), B, n, C3 // 3, heads, float(scale), G,
+            int(order == "phase"), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"mhsa_group_bwd({variant_name(order, G)})")
     LAUNCHES[variant_name(order, G) + "_bwd"] += 1
+    RAN[variant_name(order, G) + "_bwd", launched(lib, before)] += 1
     return dqkv
 
 

@@ -1,5 +1,4 @@
-"""K1 (`mhsa_fused_qkv`) at the shapes the trainers give it, beside the first
-K1 schedule.
+"""K1 (`mhsa_fused_qkv`) at the shapes the trainers give it, beside S1 at G = 1.
 
     python -m autoprog_tpu_torch.scripts.bench_k1 [repeats]
 
@@ -13,9 +12,10 @@ this short are also held to the host's launch rate):
   fwd +stats     the forward that also writes the row statistics, as autograd
                  calls it when a backward will follow;
   bwd, bwd f32   K1's backward, fed the forward's statistics;
-  first fwd/bwd  `loop_img1` of `bench_attn_x`: one 64-row tile per block, K
-                 and V streamed in tiles of 64 keys, f32 scores, which was K1's
-                 schedule before the resident path.
+  loop_img1 fwd / bwd   `loop_img1` of `bench_attn_x` (S1, order loop, G = 1):
+                 K1's walks at f32 scores with the next cell always in flight
+                 in a second buffer, and the backward without the forward's
+                 statistics (K1's bits at f32 scores).
 
 `time_shape` takes further callables to time in the same turns (the smoke run
 passes a library call as its yardstick; this package calls none). Without a
@@ -38,7 +38,7 @@ from autoprog_tpu_torch.scripts.timing import card_name, time_call
 #: (batch, tokens, heads, head_dim): the volo_d1 stages and deit_small
 SHAPES = [(128, 64, 12, 32), (128, 100, 12, 32), (128, 144, 12, 32), (128, 196, 12, 32),
           (64, 197, 6, 64)]
-COLUMNS = ("fwd", "fwd f32", "fwd +stats", "bwd", "bwd f32", "first fwd", "first bwd")
+COLUMNS = ("fwd", "fwd f32", "fwd +stats", "bwd", "bwd f32", "loop_img1 fwd", "loop_img1 bwd")
 
 
 def inputs(B: int, n: int, heads: int, d: int, device: torch.device, seed: int = 0):
@@ -63,8 +63,8 @@ def time_shape(qkv: torch.Tensor, dout: torch.Tensor, heads: int, iters: int = 3
             "fwd +stats": lambda: A._launch_fwd(qkv, heads, scale, False, want_stats=True),
             "bwd": lambda: A._launch_bwd(qkv, dout, heads, scale, False, stats[False]),
             "bwd f32": lambda: A._launch_bwd(qkv, dout, heads, scale, True, stats[True]),
-            "first fwd": lambda: X._launch_group_fwd("loop", 1, qkv, heads, scale),
-            "first bwd": lambda: X._launch_group_bwd("loop", 1, qkv, dout, heads, scale),
+            "loop_img1 fwd": lambda: X._launch_group_fwd("loop", 1, qkv, heads, scale),
+            "loop_img1 bwd": lambda: X._launch_group_bwd("loop", 1, qkv, dout, heads, scale),
         }
     else:
         stats = {sf: A.mhsa_fused_qkv_reference(qkv, heads, scale, sf, True)[1]
@@ -77,8 +77,8 @@ def time_shape(qkv: torch.Tensor, dout: torch.Tensor, heads: int, iters: int = 3
                                                                stats[False]),
             "bwd f32": lambda: A.mhsa_fused_qkv_backward_reference(qkv, dout, heads, scale,
                                                                    True, stats[True]),
-            "first fwd": lambda: X.group_reference(qkv, heads, scale),
-            "first bwd": lambda: X.group_backward_reference(qkv, dout, heads, scale),
+            "loop_img1 fwd": lambda: X.group_reference(qkv, heads, scale),
+            "loop_img1 bwd": lambda: X.group_backward_reference(qkv, dout, heads, scale),
         }
     calls.update(extra or {})
     ms = {key: float("inf") for key in calls}

@@ -3,15 +3,20 @@
 
     python3 chip_smoke.py
 
+(K1, K5 and the MHSA variants against an earlier commit's, in turns on the
+same card: `python -m autoprog_tpu_torch.scripts.mhsa_turns --parent DIR`.)
+
 Phases (each prints its lines; any failure exits non-zero; nothing falls
 back to the CPU or to a plain twin):
   1. device: name, nvidia-smi name and power limit, TF32 flags (set off);
   2. build: nvcc builds the CUDA kernels from csrc/ (build/kernels/), one
      compiler process per source, all at once; prints the registers and the
-     spill bytes `ptxas -v` reports for every K1 / K5 kernel and for K2's row
-     kernels (`outlook_fwd_rows`, `outlook_bwd_rows`, bf16 and f32) and fails
-     if one of the resident-path kernels (`mhsa_fwd_res`, `mhsa_bwd_res`) or
-     of K2's row kernels spills;
+     spill bytes `ptxas -v` reports for every K1 / K5 kernel, for the MHSA
+     variants' resident kernels (`fwd_walk`, `fwd_park`, `fwd_phase`,
+     `bwd_walk`) and for K2's row kernels (`outlook_fwd_rows`,
+     `outlook_bwd_rows`, bf16 and f32) and fails if one of K1's
+     resident-path kernels (`mhsa_fwd_res`, `mhsa_bwd_res`) or of K2's row
+     kernels spills;
   3. kernel vs plain, on the card, bf16 and f32, tolerance 2 ulp of the
      largest value: K1 forward and backward at the volo_d1 shapes (B=32,
      C=384, 12 heads, n = 64/100/144/196), at the DeiT shapes (n = 197 and
@@ -23,9 +28,14 @@ back to the CPU or to a plain twin):
      (separate q, k, v; contiguous and as views of one
      buffer) at the same shapes; every schedule variant (twophase,
      twophase_bf16s, pipelined) and every G-images-per-block variant (order
-     phase or loop, G = 1, 2, 4; forward and backward) against its twin,
-     against K1's launch at the same score type (2 ulp) and, bit for bit,
-     against `loop_img1`, which is the first K1 schedule; K2 forward and
+     phase or loop, G = 1, 2, 4; forward and backward) against its twin and
+     K1's launch at the same score type (2 ulp) and, bit for bit, against K1
+     at that score type at [128, 196, 12, 32] (the benches' shape: more
+     items than resident blocks), [32, 196, 12, 32] and [8, 197, 6, 64] (the
+     resident kernels) and against `loop_img1` at [8, 257, 4, 32] (the
+     streaming ones), each call's kernels, as the library counts them beside
+     each launch, the ones its shape routes to, and the most images a block
+     of order phase takes at five resident shapes; K2 forward and
      backward at B=32, C=192, 6 heads, H=W=16/20/24/28, at the d2 and d4
      widths, at an odd shape (H=10, W=6, head_dim 48), with several runs of
      rows per image, with more items than blocks, on one window, and through
@@ -57,16 +67,18 @@ back to the CPU or to a plain twin):
      `scripts.bench_attn_x.main` at B = 128 (their tables) and
      `autoprog_tpu_torch.bench.main` (one JSON line: img/s of the full
      volo_d1 step at batch 128 and the progressive schedule's `vs_baseline`);
-     checks value > 0, vs_baseline > 0 and that K5 and every variant were
-     launched;
+     checks value > 0, vs_baseline > 0, that K5 and every variant were
+     launched, each variant through its resident kernels, and that
+     `bench_attn_x`'s own check found every variant bit for bit equal to K1
+     at f32 scores, forward and backward;
   8. times (CUDA events / synchronised clock, after warm-up, bf16), on the
      card named beside them: K1 at [128, 196, 384, 12 heads] with
      `F.scaled_dot_product_attention` as its library yardstick;
      `scripts.bench_k1`'s table, K1 at both score types beside `loop_img1`
-     (the first K1 schedule: one 64-row tile per block, K and V streamed, f32
-     scores), with SDPA timed in the same turns, at the four stage shapes
-     n = 64, 100, 144, 196 and at DeiT's [64, 197, 384, 6 heads]; one
-     K5 and every variant at the same shape, each beside its twin and SDPA; one
+     (S1 at G = 1, f32 scores), with SDPA timed in the same turns, at the
+     four stage shapes n = 64, 100, 144, 196 and at DeiT's [64, 197, 384, 6
+     heads]; K5 and every variant at [128, 196, 384, 12 heads], each beside
+     its twin, K1 at its score type, SDPA and the bound; one
      outlooker layer's op at [128, 28, 28, 192] through the unfused path, K2,
      K3 and K4, forward and forward + backward; `scripts.bench_k2`'s table,
      K2 at the four stage maps and the d4 width beside its general kernels
@@ -135,8 +147,9 @@ variants run of phase 8; K5 and the MHSA variants: the measurement scripts
 of phase 7), its
 worst error against the twin, its time, the twin's,
 the least time the card could take (`bound_ms`, from the bytes it must move
-at 3.35 TB/s and its operations at the peak of their type) and the library
-call's time where one exists. The last line is {"ok": true, "device":
+at 3.35 TB/s and its operations at the peak of their type), the library
+call's time where one exists; a variant's row names the kernels its phase 7
+launches ran, as the library counted them (`kernel`). The last line is {"ok": true, "device":
 {...}}. Without a CUDA device the script exits 1 before printing any result.
 """
 
@@ -191,8 +204,14 @@ def phase_device(torch):
     return name, card
 
 
+# the resident kernels of csrc/mhsa_variants.cu
+VARIANT_KERNELS = ("fwd_walk", "fwd_park", "fwd_phase", "bwd_walk")
+
+
 def phase_build():
+    """Build the kernels, all compilers at once; print registers and spills."""
     from autoprog_tpu_torch import _build
+    from autoprog_tpu_torch.scripts.mhsa_turns import short_kernel
     t0 = time.time()
     libs = _build.build()
     dt = time.time() - t0
@@ -203,11 +222,12 @@ def phase_build():
         log = lib.with_suffix(".log").read_text()
         regs = re.findall(r"Used (\d+) registers", log)
         say(f"phase 2 build: {lib.name} (registers per kernel: {regs})")
-        if lib.name.startswith("mhsa_qkv"):
+        if lib.name.startswith("mhsa_qkv") or lib.name.startswith("mhsa_variants"):
             for name, stack, st, ld, used in entry.findall(log):
-                kernel = re.search(r"\d+(mhsa_[a-z_]+?)I(\S*?)EEv", name)
-                args = ", ".join(re.findall(r"L[ib](\d+)E", kernel.group(2))) if kernel else ""
-                short = f"{kernel.group(1)}<{args}>" if kernel else name
+                short = short_kernel(name)
+                if lib.name.startswith("mhsa_variants") and \
+                        not short.startswith(VARIANT_KERNELS):
+                    continue  # the streaming kernels, unchanged
                 say(f"phase 2 ptxas: {short}: {used} registers, {stack} bytes stack, spill "
                     f"stores {st} loads {ld} bytes")
                 if "_res" in short and (int(st) or int(ld)):
@@ -306,17 +326,19 @@ def _check(tag, worst, key, got, want, dt_name):
 def phase_mhsa_variants(torch):
     """K5 against its twin (bf16 and f32; contiguous q, k, v and the three
     views of one qkv buffer) and against K1 at f32 scores; every schedule
-    variant and every G-images-per-block variant (bf16) against its twin and
-    against K1's launch at the variant's score type. Same tolerance and
-    reason as K1's. K5 runs K1's kernels and must equal it bit for bit. The
-    variants keep the first K1 schedule's element-wise arithmetic (expf, a
-    division per score), where K1's resident path now spends an fma and an
-    ex2 and multiplies by 1 / z: they are held bit for bit against
-    `loop_img1`, which is that first schedule, and the outcome is printed."""
+    variant and every G-images-per-block variant (bf16) against its twin.
+    Same tolerance and reason as K1's. K5 runs K1's kernels and must equal it
+    bit for bit. The variants keep K1's arithmetic and its order: at the
+    resident shapes (the benches' shape at B = 128 and 32, and DeiT's) they
+    are built from K1's resident walks and must equal K1 at their score type
+    bit for bit, forward and (S1) backward; at [8, 257, 4, 32] they run the
+    streaming cells, K1's path there, and the f32 ones must equal
+    `loop_img1`, which is that path. Each call must launch the kernels its
+    shape routes to, as the library counts them."""
     from autoprog_tpu_torch.ops import attention as A
     from autoprog_tpu_torch.scripts import attn_variants as V
     from autoprog_tpu_torch.scripts import bench_attn_x as X
-    worst, same = {}, {}
+    worst = {}
     gen = torch.Generator("cuda").manual_seed(5)
     shapes = [(32, n, 12, 32) for n in (64, 100, 144, 196)] + [
         (8, 197, 6, 64), (4, 1024, 3, 128), (8, 256, 4, 32), (8, 257, 4, 32), (4, 17, 2, 24)]
@@ -349,25 +371,33 @@ def phase_mhsa_variants(torch):
                     fail(f"K5 {how} {tag} {dt_name}: not K1's bits at f32 scores")
     say("phase 3 K5 equals K1 at f32 scores bit for bit at every shape, with and without the "
         "saved statistics")
-    # the variants: the bench shape and DeiT's (odd n, head_dim 64)
-    for B, n, H, d in [(32, 196, 12, 32), (8, 197, 6, 64)]:
+    # the variants: the benches' shape at B = 128 (more items than resident
+    # blocks, so a persistent block walks several: the next item in its
+    # second buffer, the ring's slots reused) and at B = 32, DeiT's (odd n,
+    # head_dim 64) on the resident path, n = 257 on the streaming one
+    same, wrong = {}, []
+    for B, n, H, d in [(128, 196, 12, 32), (32, 196, 12, 32), (8, 197, 6, 64), (8, 257, 4, 32)]:
         qkv = torch.randn(B, n, 3 * H * d, device="cuda", generator=gen).bfloat16()
         dout = torch.randn(B, n, H * d, device="cuda", generator=gen).bfloat16()
         scale, tag = d ** -0.5, f"B={B} n={n} heads={H} d={d}"
-        k1f = A._launch_fwd(qkv, H, scale, True)
+        resident = n <= 256 and d <= 64
+        V.RAN.clear()
+        X.RAN.clear()
+        k1f = {sf: A._launch_fwd(qkv, H, scale, sf) for sf in (False, True)}
         k1b = A._launch_bwd(qkv, dout, H, scale, True)
-        first_f = X._launch_group_fwd("loop", 1, qkv, H, scale)
-        first_b = X._launch_group_bwd("loop", 1, qkv, dout, H, scale)
+        loop1_f = X._launch_group_fwd("loop", 1, qkv, H, scale)
+        loop1_b = X._launch_group_bwd("loop", 1, qkv, dout, H, scale)
+        ref_name = "K1" if resident else "loop_img1"
         for name in V._KERNELS:
+            sf = V.SCORES_F32[name]
             out = V._launch(name, qkv, H, scale)
-            k1 = A._launch_fwd(qkv, H, scale, V.SCORES_F32[name])
             torch.cuda.synchronize()
             _check(f"S2 {name} {tag}", worst, name, out,
                    V.mhsa_fwd_variant_reference(name, qkv, H, scale), "bfloat16")
-            _check(f"S2 {name} vs K1 scores_f32={int(V.SCORES_F32[name])} {tag}", worst, name,
-                   out, k1, "bfloat16")
-            if V.SCORES_F32[name]:
-                same[name] = same.get(name, True) and torch.equal(out, first_f)
+            _check(f"S2 {name} vs K1 scores_f32={int(sf)} {tag}", worst, name, out, k1f[sf],
+                   "bfloat16")
+            if resident or sf:
+                same[f"{name} {tag}"] = torch.equal(out, k1f[sf] if resident else loop1_f)
         ref_f = X.group_reference(qkv, H, scale)
         ref_b = X.group_backward_reference(qkv, dout, H, scale)
         for order, G in GROUPS + [("loop", 1)]:
@@ -376,18 +406,30 @@ def phase_mhsa_variants(torch):
             grad = X._launch_group_bwd(order, G, qkv, dout, H, scale)
             torch.cuda.synchronize()
             _check(f"S1 {key} fwd {tag}", worst, key + "_fwd", out, ref_f, "bfloat16")
-            _check(f"S1 {key} fwd vs K1 at f32 scores {tag}", worst, key + "_fwd", out, k1f,
-                   "bfloat16")
+            _check(f"S1 {key} fwd vs K1 at f32 scores {tag}", worst, key + "_fwd", out,
+                   k1f[True], "bfloat16")
             _check(f"S1 {key} bwd {tag}", worst, key + "_bwd", grad, ref_b, "bfloat16")
             _check(f"S1 {key} bwd vs K1 at f32 scores {tag}", worst, key + "_bwd", grad, k1b,
                    "bfloat16")
-            same[key] = same.get(key, True) and torch.equal(out, first_f) and \
-                torch.equal(grad, first_b)
-        same["K1"] = same.get("K1", True) and torch.equal(k1f, first_f) and \
-            torch.equal(k1b, first_b)
-    say(f"phase 3 bit for bit equal to loop_img1 (the first K1 schedule, f32 scores): {same}")
-    if not all(v for k, v in same.items() if k != "K1"):
-        fail(f"a variant with f32 scores differs from loop_img1: {same}")
+            if resident or key != "loop_img1":
+                same[f"{key} {tag}"] = torch.equal(out, k1f[True] if resident else loop1_f) \
+                    and torch.equal(grad, k1b if resident else loop1_b)
+        say(f"phase 3 variants at {tag} bit for bit equal to {ref_name} at their score type: "
+            f"{ {k.split(' B=')[0]: v for k, v in same.items() if k.endswith(tag)} }")
+        ran = {**V.RAN, **X.RAN}
+        say(f"phase 3 kernels the variants launched at {tag}, as the library counted them: "
+            f"{ {f'{key} {kernels}': c for (key, kernels), c in ran.items()} }")
+        wrong += [f"{key} at {tag}: {kernels}" for key, kernels in ran
+                  if kernels != V.expected_kernels(key, resident)]
+        called = [*V._KERNELS] + [X.variant_name(o, G) + side for o, G in GROUPS + [("loop", 1)]
+                                  for side in ("_fwd", "_bwd")]
+        wrong += [f"{key} at {tag}: no launch counted" for key in called
+                  if key not in {k for k, _ in ran}]
+    if not all(same.values()):
+        fail(f"a variant differs from K1 (resident shapes) or loop_img1 (n = 257): "
+             f"{[k for k, v in same.items() if not v]}")
+    if wrong:
+        fail(f"a variant did not launch the kernels its shape routes to: {wrong}")
     # what does not fit is refused, not shrunk
     big = torch.randn(2, 1024, 3 * 2 * 64, device="cuda", generator=gen).bfloat16()
     for what, call in (("twophase at n=1024", lambda: V._launch("twophase", big, 2, 0.125)),
@@ -399,6 +441,29 @@ def phase_mhsa_variants(torch):
             say(f"phase 3 {what}: refused ({e})")
         else:
             fail(f"{what} should not fit a block's shared memory")
+    # the most images a block takes in order phase (up to 64), by the
+    # kernels' own refusal of the parked rows that do not fit
+    fits = {}
+    for n, d in ((64, 32), (196, 32), (256, 32), (197, 64), (256, 64)):
+        for side in ("fwd", "bwd"):
+            lo, hi = 0, 64
+            while lo < hi:
+                G = (lo + hi + 1) // 2
+                x = torch.randn(G, n, 3 * d, device="cuda", generator=gen).bfloat16()
+                try:
+                    if side == "fwd":
+                        X._launch_group_fwd("phase", G, x, 1, d ** -0.5)
+                    else:
+                        X._launch_group_bwd("phase", G, x, x[..., :d], 1, d ** -0.5)
+                except ValueError:
+                    hi = G - 1
+                else:
+                    lo = G
+            fits[f"n={n} d={d} {side}"] = lo
+    torch.cuda.synchronize()
+    say(f"phase 3 the most images a block of order phase takes (of 64): {fits}")
+    if min(fits.values()) < 4:
+        fail("order phase does not take G = 4 at every resident shape")
     return worst
 
 
@@ -694,6 +759,8 @@ def _reset_mhsa_counts():
     for k in V.LAUNCHES:
         V.LAUNCHES[k] = 0
     X.LAUNCHES.clear()
+    V.RAN.clear()
+    X.RAN.clear()
 
 
 def phase_deit(torch, card, steps: int = 4, batch: int = 64):
@@ -774,7 +841,8 @@ def phase_measure(torch):
     """The measurement entry points, as a user calls them: the two attention
     benches at B = 128 (their tables go to stdout) and the headline bench
     (its one JSON line is parsed, then printed). Returns the launch counts
-    of K5 and of every variant over this phase."""
+    of K5 and of every variant over this phase and {row: the kernels its
+    launches ran}."""
     import contextlib
     import io
     from autoprog_tpu_torch import bench
@@ -787,7 +855,12 @@ def phase_measure(torch):
     say("phase 7 python -m autoprog_tpu_torch.scripts.bench_attn 128")
     bench_attn.main(["128"])
     say("phase 7 python -m autoprog_tpu_torch.scripts.bench_attn_x 128")
-    X.main(["128"])
+    rows = X.main(["128"])
+    # the bench's own check: every variant bit for bit K1 at f32 scores
+    unequal = [r["name"] for r in rows if not r["name"].startswith("base")
+               and not (r["fwd_equal"] and r["bwd_equal"])]
+    if unequal or len(rows) != 2 + len(GROUPS):
+        fail(f"bench_attn_x 128: not K1's bits at f32 scores: {unequal} ({len(rows)} rows)")
     counts = {"mhsa_fwd": A.LAUNCHES["fused_fwd"], "mhsa_bwd": A.LAUNCHES["fused_bwd"],
               **V.LAUNCHES, **X.LAUNCHES}
     say(f"phase 7 launches by the two benches: {counts}")
@@ -796,6 +869,16 @@ def phase_measure(torch):
     missing = [k for k in want if counts.get(k, 0) <= 0]
     if missing:
         fail(f"the benches did not launch {missing}")
+    ran = {**V.RAN, **X.RAN}
+    say(f"phase 7 kernels the variants launched, as the library counted them: "
+        f"{ {f'{key} {kernels}': c for (key, kernels), c in ran.items()} }")
+    wrong = [f"{key}: {kernels}" for key, kernels in ran
+             if kernels != V.expected_kernels(key, True)]
+    if wrong:
+        fail(f"a variant did not launch its resident kernels at the benches' shape: {wrong}")
+    kernels = {}
+    for key, names in ran:
+        kernels.setdefault(key, set()).add(names)
     say("phase 7 python -m autoprog_tpu_torch.bench")
     buf = io.StringIO()
     t0 = time.time()
@@ -810,7 +893,7 @@ def phase_measure(torch):
             result["metric"] != "volo_d1_train_imgs_per_sec_per_chip" or \
             not (result["value"] > 0 and result["vs_baseline"] > 0):
         fail(f"bench.main's line does not hold the four keys with positive values: {result}")
-    return counts
+    return counts, {key: "+".join(sorted(v)) for key, v in kernels.items()}
 
 
 def _time_cuda(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -821,7 +904,8 @@ def _time_cuda(torch, fn, iters: int, warmup: int = 3) -> float:
 
 def phase_kernel_times(torch, card):
     """K1 at the volo_d1 shape, with `F.scaled_dot_product_attention` (one
-    PyTorch call for the same function, used nowhere in the port) beside it."""
+    PyTorch call for the same function, used nowhere in the port) beside
+    it."""
     import torch.nn.functional as F
     from autoprog_tpu_torch.ops import attention as A
     B, n, H, d = 128, 196, 12, 32
@@ -841,8 +925,8 @@ def phase_kernel_times(torch, card):
     stats = A._launch_fwd(qkv, H, scale, False, want_stats=True)[1]
     t = {
         "fwd": _time_cuda(torch, lambda: A._launch_fwd(qkv, H, scale, False), 50),
-        "plain_fwd": _time_cuda(torch, lambda: A.mhsa_fused_qkv_reference(qkv, H, scale), 20),
         "bwd": _time_cuda(torch, lambda: A._launch_bwd(qkv, dout, H, scale, False, stats), 50),
+        "plain_fwd": _time_cuda(torch, lambda: A.mhsa_fused_qkv_reference(qkv, H, scale), 20),
         "plain_bwd": _time_cuda(
             torch, lambda: A.mhsa_fused_qkv_backward_reference(qkv, dout, H, scale), 20),
         "lib_fwd": _time_cuda(torch, lambda: sdpa(qkv), 50),
@@ -866,7 +950,7 @@ def phase_kernel_times(torch, card):
 
 def phase_k1_shape_times(torch, card):
     """K1 at its default (bf16) scores and at f32 scores beside `loop_img1`
-    (the first K1 schedule, f32 scores), SDPA and the bound, forward and
+    (S1 at G = 1, f32 scores), SDPA and the bound, forward and
     backward, at every shape a trainer gives it: `scripts.bench_k1`'s table
     with the library call timed in the same turns. The backward is fed the
     forward's statistics, as autograd feeds it. Returns {(side, n): row} and
@@ -899,23 +983,25 @@ def phase_k1_shape_times(torch, card):
         bound = {"fwd": _bound(4 * B * n * C * 2, 2 * prod, BF16_FLOPS),
                  "bwd": _bound(7 * B * n * C * 2, 5 * prod, BF16_FLOPS)}
         for side in ("fwd", "bwd"):
-            t = {"bf16": ms[side], "f32": ms[side + " f32"], "first": ms["first " + side],
+            t = {"bf16": ms[side], "f32": ms[side + " f32"], "loop1": ms["loop_img1 " + side],
                  "lib": ms["lib " + side], "plain": ms["plain " + side]}
             say(f"phase 8 K1 {side} [B={B}, n={n}, C={C}, heads={H}] bf16 on {card}: "
                 f"{t['bf16']:.4f} ms at bf16 scores, {t['f32']:.4f} at f32 scores"
                 + (f", {ms['fwd +stats']:.4f} writing the statistics" if side == "fwd" else "")
-                + f"; loop_img1 {t['first']:.4f}, SDPA {t['lib']:.4f}, plain {t['plain']:.4f}, "
-                f"bound {bound[side][0]:.4f} by {bound[side][1]}; K1 at f32 scores is "
-                f"{t['first'] / t['f32']:.2f}x loop_img1, K1 is {t['lib'] / t['bf16']:.2f}x SDPA, "
-                f"bf16 scores {t['bf16'] / t['f32']:.3f}x the time of f32 scores")
+                + f"; loop_img1 (S1 at G = 1) {t['loop1']:.4f}, SDPA {t['lib']:.4f}, plain "
+                f"{t['plain']:.4f}, bound {bound[side][0]:.4f} by {bound[side][1]}; loop_img1 "
+                f"takes {t['loop1'] / t['f32']:.2f}x the time of K1 at f32 scores, K1 is "
+                f"{t['lib'] / t['bf16']:.2f}x SDPA, bf16 scores {t['bf16'] / t['f32']:.3f}x the "
+                f"time of f32 scores")
             rows[side, n] = {**t, "bound": bound[side]}
     return rows, dict(X.LAUNCHES)
 
 
 def phase_mhsa_variant_times(torch, card, t_k1):
-    """K5 and every variant at the volo_d1 shape beside its twin and SDPA
-    (K1's library yardstick, timed in phase_kernel_times). Returns
-    {row: {ms, plain_ms, library_ms, bound_ms, bound_by}}."""
+    """K5 and every variant at the volo_d1 shape beside its twin, K1 at the
+    variant's score type, SDPA (K1's library yardstick, timed in
+    phase_kernel_times) and the bound. Returns {row: {ms, plain_ms,
+    library_ms, bound_ms, bound_by}}."""
     from autoprog_tpu_torch.ops import attention as A
     from autoprog_tpu_torch.scripts import attn_variants as V
     from autoprog_tpu_torch.scripts import bench_attn_x as X
@@ -927,7 +1013,8 @@ def phase_mhsa_variant_times(torch, card, t_k1):
                for _ in range(3))
     g4 = dout.view(B, n, H, d)
     scale = d ** -0.5
-    # the variants' twins are K1's at the variant's score type
+    # the variants' twins are K1's at the variant's score type; the S1
+    # backwards compute their row statistics, as K1 does when given none
     plain = {
         ("fwd", True): _time_cuda(
             torch, lambda: A.mhsa_fused_qkv_reference(qkv, H, scale, True), 20),
@@ -935,34 +1022,39 @@ def phase_mhsa_variant_times(torch, card, t_k1):
             torch, lambda: A.mhsa_fused_qkv_backward_reference(qkv, dout, H, scale, True), 20),
         ("fwd", False): t_k1["plain_fwd"],
     }
-    rows = {
-        "mhsa_fwd": (_time_cuda(torch, lambda: A._launch_fused_fwd(q, k, v, scale), 50),
+    k1 = {("fwd", True): _time_cuda(torch, lambda: A._launch_fwd(qkv, H, scale, True), 50),
+          ("fwd", False): _time_cuda(torch, lambda: A._launch_fwd(qkv, H, scale, False), 50),
+          ("bwd", True): _time_cuda(torch, lambda: A._launch_bwd(qkv, dout, H, scale, True), 30)}
+    rows = {  # row: (the call, plain ms, side, K1's key)
+        "mhsa_fwd": (lambda: A._launch_fused_fwd(q, k, v, scale),
                      _time_cuda(torch, lambda: A.mhsa_fused_reference(q, k, v, scale), 20),
-                     "fwd"),
-        "mhsa_bwd": (_time_cuda(torch, lambda: A._launch_fused_bwd(q, k, v, g4, scale), 50),
+                     "fwd", ("fwd", True)),
+        "mhsa_bwd": (lambda: A._launch_fused_bwd(q, k, v, g4, scale),
                      _time_cuda(torch, lambda: A.mhsa_fused_backward_reference(
-                         q, k, v, g4, scale), 20), "bwd"),
+                         q, k, v, g4, scale), 20), "bwd", ("bwd", True)),
     }
     for name in V._KERNELS:
-        rows[name] = (_time_cuda(torch, lambda: V._launch(name, qkv, H, scale), 50),
-                      plain[("fwd", V.SCORES_F32[name])], "fwd")
-    for order, G in GROUPS:
+        sf = V.SCORES_F32[name]
+        rows[name] = (lambda name=name: V._launch(name, qkv, H, scale), plain[("fwd", sf)],
+                      "fwd", ("fwd", sf))
+    for order, G in GROUPS + [("loop", 1)]:
         key = X.variant_name(order, G)
-        rows[key + "_fwd"] = (_time_cuda(
-            torch, lambda: X._launch_group_fwd(order, G, qkv, H, scale), 50),
-            plain[("fwd", True)], "fwd")
-        rows[key + "_bwd"] = (_time_cuda(
-            torch, lambda: X._launch_group_bwd(order, G, qkv, dout, H, scale), 30),
-            plain[("bwd", True)], "bwd")
+        rows[key + "_fwd"] = (lambda o=order, G=G: X._launch_group_fwd(o, G, qkv, H, scale),
+                              plain[("fwd", True)], "fwd", ("fwd", True))
+        rows[key + "_bwd"] = (
+            lambda o=order, G=G: X._launch_group_bwd(o, G, qkv, dout, H, scale),
+            plain[("bwd", True)], "bwd", ("bwd", True))
     # the same bytes and products as K1: q, k, v and out (forward), or q, k,
     # v, dout and three gradients (backward), moved once
     out = {}
-    for key, (ms, plain_ms, side) in rows.items():
+    for key, (call, plain_ms, side, k1_key) in rows.items():
+        ms = _time_cuda(torch, call, 50 if side == "fwd" else 30)
         out[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": t_k1["lib_" + side],
                     "bound_ms": t_k1["bound_" + side], "bound_by": t_k1["by_" + side]}
         say(f"phase 8 {key} [B={B}, n={n}, C={H * d}, heads={H}] bf16 on {card}: {ms:.4f} ms "
-            f"(plain {plain_ms:.4f}, SDPA {t_k1['lib_' + side]:.4f}, bound "
-            f"{t_k1['bound_' + side]:.4f} by {t_k1['by_' + side]}; K1 {t_k1[side]:.4f})")
+            f"(K1 at scores_f32={int(k1_key[1])} {k1[k1_key]:.4f}; SDPA "
+            f"{t_k1['lib_' + side]:.4f}; bound {t_k1['bound_' + side]:.4f} by "
+            f"{t_k1['by_' + side]}; plain {plain_ms:.4f})")
     return out
 
 
@@ -1973,11 +2065,11 @@ def main():
     fixed, fixed_k2, fixed_run, fixed_argv = phase_trainer(torch)
     prog_k1, prog_k2, prog_run, prog_argv = phase_prog_trainer(torch)
     deit_k1 = phase_deit(torch, card)
-    measured = phase_measure(torch)
+    measured, ran = phase_measure(torch)
     by_shape = dict(SHAPE_LAUNCHES)
     say(f"phase 7 K1 launches of phases 4 to 7 by (side, tokens, head_dim): {by_shape}")
     t = phase_kernel_times(torch, card)
-    ts, first_counts = phase_k1_shape_times(torch, card)
+    ts, loop1_counts = phase_k1_shape_times(torch, card)
     tv = phase_mhsa_variant_times(torch, card, t)
     to, variants = phase_outlook_times(torch, card)
     phase_step_times(torch, card)
@@ -1993,7 +2085,8 @@ def main():
 
     def vrow(key, src, replaces):
         return {"name": key, "route": "cuda", "source": src, "replaces": replaces,
-                "launches": measured[key], "max_abs_err": worst_v[key], **tv[key]}
+                "launches": measured[key], "max_abs_err": worst_v[key], **tv[key],
+                **({"kernel": ran[key]} if key in ran else {})}
 
     def shape_rows(B, n, H, d):
         for side, line in (("fwd", ":206"), ("bwd", ":228")):
@@ -2009,8 +2102,8 @@ def main():
             yield {"name": f"loop_img1_{side}[B={B}, n={n}, C={H * d}, heads={H}]",
                    "source": VARIANTS_SRC, "replaces": "scripts/bench_attn_x.py:" +
                    ("69" if side == "fwd" else "86"),
-                   "launches": first_counts["loop_img1_" + side],
-                   "max_abs_err": worst_v["loop_img1_" + side], "ms": r["first"], **common}
+                   "launches": loop1_counts["loop_img1_" + side],
+                   "max_abs_err": worst_v["loop_img1_" + side], "ms": r["loop1"], **common}
 
     report = {"kernels": [
         _row("mhsa_qkv_fwd", MHSA_SRC, att + ":206", k1["fwd"], worst["fwd"], t, "fwd"),

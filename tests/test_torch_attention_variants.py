@@ -304,7 +304,7 @@ def test_bench_k1_prints_its_table_on_the_cpu(monkeypatch, capsys):
     assert [(r["n"], r["heads"], r["d"]) for r in rows] == [
         (64, 12, 32), (100, 12, 32), (144, 12, 32), (196, 12, 32), (197, 6, 64)]
     assert all(r[c] > 0 for r in rows for c in bench_k1.COLUMNS)
-    assert "on cpu" in out and "first bwd" in out
+    assert "on cpu" in out and "loop_img1 bwd" in out
 
 
 def test_bench_k1_times_further_calls_in_the_same_turns():

@@ -80,3 +80,22 @@ def test_signature_matches_the_c_declaration(name):
     for k, (got, want) in enumerate(zip(argtypes, c_argtypes)):
         assert got is want, f"{name} argument {k}: {got.__name__} where the source has " \
                             f"{want.__name__}"
+
+
+def test_variant_kernel_names_follow_the_sources_enum():
+    """`mhsa_variant_launches` fills its counts in the order of the `Kernel`
+    enum of `csrc/mhsa_variants.cu`; `attn_variants.KERNEL_NAMES` must name
+    them in that order, and every kernel a route expects must be one of
+    them."""
+    from autoprog_tpu_torch.scripts import attn_variants as V
+    src = (_build.CSRC / "mhsa_variants.cu").read_text()
+    body = re.search(r"enum Kernel \{(.*?)\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    names = [w.strip() for w in body.split(",") if w.strip()]
+    assert names[-1] == "KERNELS"
+    assert tuple(w.removeprefix("K_").lower() for w in names[:-1]) == V.KERNEL_NAMES
+    # one count beside each launch of the file
+    launches = len(re.findall(r"<<<.*?>>>\(", src, re.S))
+    assert launches == len(V.KERNEL_NAMES) == len(re.findall(r"\+\+launches\[K_\w+\];", src))
+    for resident, streaming in V.KERNELS_BY_ROUTE.values():
+        assert set(resident.split("+")) | set(streaming.split("+")) <= set(V.KERNEL_NAMES)

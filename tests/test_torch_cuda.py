@@ -511,19 +511,18 @@ def test_schedule_variant_matches_twin_and_k1(cuda_device, name, B, n, heads, d)
     from autoprog_tpu_torch.scripts import attn_variants as V
     x, dout = _qkv(cuda_device, B, n, heads, d, torch.bfloat16, seed=2)
     scale = d ** -0.5
-    before = V.LAUNCHES[name]
+    before, ran = V.LAUNCHES[name], V.RAN.copy()
     xr = x.clone().requires_grad_(True)
     out = V.mhsa_variant_with_shared_bwd(name)(xr, heads, scale)
     out.backward(dout)
     torch.cuda.synchronize()
     assert V.LAUNCHES[name] == before + 1
     assert_close(out, V.mhsa_fwd_variant_reference(name, x, heads, scale), torch.bfloat16)
-    # K1's resident path spends other f32 operations per score (ex2, 1 / z):
-    # 2 ulp against K1; bit for bit against the first K1 schedule, loop_img1
-    assert_close(out, A._launch_fwd(x, heads, scale, V.SCORES_F32[name]), torch.bfloat16)
-    if V.SCORES_F32[name]:
-        from autoprog_tpu_torch.scripts import bench_attn_x as X
-        assert torch.equal(out, X._launch_group_fwd("loop", 1, x, heads, scale))
+    # every shape here is resident: the variant runs K1's walks in another
+    # schedule (the kernel the library counted) and gives K1's bits at its
+    # score type
+    assert V.RAN - ran == {(name, V.expected_kernels(name, True)): 1}
+    assert torch.equal(out, A._launch_fwd(x, heads, scale, V.SCORES_F32[name]))
     assert_close(xr.grad, A.mhsa_fused_qkv_backward_reference(
         x, dout, heads, scale, A.scores_f32_default()), torch.bfloat16)
 
@@ -549,12 +548,13 @@ def test_schedule_variants_refuse_what_does_not_fit(cuda_device):
                                      ("loop", 1), ("loop", 2), ("loop", 4)])
 @pytest.mark.parametrize("B,n,heads,d", MHSA_SHAPES)
 def test_group_variant_matches_twin_and_k1(cuda_device, order, G, B, n, heads, d):
+    from autoprog_tpu_torch.scripts import attn_variants as V
     from autoprog_tpu_torch.scripts import bench_attn_x as X
     B = 4                                       # a multiple of every G
     x, dout = _qkv(cuda_device, B, n, heads, d, torch.bfloat16, seed=3)
     scale = d ** -0.5
     key = X.variant_name(order, G)
-    before = (X.LAUNCHES[key + "_fwd"], X.LAUNCHES[key + "_bwd"])
+    before, ran = (X.LAUNCHES[key + "_fwd"], X.LAUNCHES[key + "_bwd"]), X.RAN.copy()
     xr = x.clone().requires_grad_(True)
     out = X.make_variant(order, G, heads, scale)(xr)
     out.backward(dout)
@@ -563,12 +563,68 @@ def test_group_variant_matches_twin_and_k1(cuda_device, order, G, B, n, heads, d
                                                                     before[1] + 1)
     assert_close(out, X.group_reference(x, heads, scale), torch.bfloat16)
     assert_close(xr.grad, X.group_backward_reference(x, dout, heads, scale), torch.bfloat16)
-    # bit for bit the first K1 schedule (loop_img1); K1's resident path
-    # spends other f32 operations per score (ex2, 1 / z): 2 ulp
-    assert torch.equal(out, X._launch_group_fwd("loop", 1, x, heads, scale))
-    assert torch.equal(xr.grad, X._launch_group_bwd("loop", 1, x, dout, heads, scale))
-    assert_close(out, A._launch_fwd(x, heads, scale, True), torch.bfloat16)
-    assert_close(xr.grad, A._launch_bwd(x, dout, heads, scale, True), torch.bfloat16)
+    # every shape here is resident: K1's bits at f32 scores, forward and
+    # backward (K1's backward computing its own row statistics, as S1's does)
+    assert X.RAN - ran == {(key + side, V.expected_kernels(key + side, True)): 1
+                           for side in ("_fwd", "_bwd")}
+    assert torch.equal(out, A._launch_fwd(x, heads, scale, True))
+    assert torch.equal(xr.grad, A._launch_bwd(x, dout, heads, scale, True))
+
+
+@pytest.mark.parametrize("B,n,heads,d", [(128, 196, 12, 32), (8, 197, 6, 64)])
+def test_phase_img4_runs_at_the_bench_shapes(cuda_device, B, n, heads, d):
+    """The parked rows of four cells fit a block at both bench shapes (at
+    head_dim 64 with one warp a block); at B = 128 each persistent block
+    walks more than one item, through the ring's reused slots."""
+    from autoprog_tpu_torch.scripts import bench_attn_x as X
+    x, dout = _qkv(cuda_device, B, n, heads, d, torch.bfloat16, seed=4)
+    scale = d ** -0.5
+    assert torch.equal(X._launch_group_fwd("phase", 4, x, heads, scale),
+                       A._launch_fwd(x, heads, scale, True))
+    assert torch.equal(X._launch_group_bwd("phase", 4, x, dout, heads, scale),
+                       A._launch_bwd(x, dout, heads, scale, True))
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_loop_order_at_the_bench_shape(cuda_device, G):
+    """`loop` at [128, 196, 12, 32]: more items than resident blocks, so a
+    block takes the next item from the second buffer; K1's bits at f32
+    scores, forward and backward."""
+    from autoprog_tpu_torch.scripts import bench_attn_x as X
+    B, n, heads, d = 128, 196, 12, 32
+    x, dout = _qkv(cuda_device, B, n, heads, d, torch.bfloat16, seed=9)
+    scale = d ** -0.5
+    assert torch.equal(X._launch_group_fwd("loop", G, x, heads, scale),
+                       A._launch_fwd(x, heads, scale, True))
+    assert torch.equal(X._launch_group_bwd("loop", G, x, dout, heads, scale),
+                       A._launch_bwd(x, dout, heads, scale, True))
+
+
+def test_variants_equal_loop_img1_where_the_shape_streams(cuda_device):
+    """n = 257 is past the resident path: every variant runs the streaming
+    cells, K1's path there, and those with f32 scores equal `loop_img1`, which
+    is that path, bit for bit; twophase_bf16s stays within 2 ulp of its twin."""
+    from autoprog_tpu_torch.scripts import attn_variants as V
+    from autoprog_tpu_torch.scripts import bench_attn_x as X
+    B, n, heads, d = 8, 257, 4, 32
+    x, dout = _qkv(cuda_device, B, n, heads, d, torch.bfloat16, seed=6)
+    scale = d ** -0.5
+    ran = V.RAN + X.RAN
+    first_f = X._launch_group_fwd("loop", 1, x, heads, scale)
+    first_b = X._launch_group_bwd("loop", 1, x, dout, heads, scale)
+    assert_close(first_f, A._launch_fwd(x, heads, scale, True), torch.bfloat16)
+    for name in V._KERNELS:
+        out = V.mhsa_fwd_variant(name, x, heads, scale)
+        assert_close(out, V.mhsa_fwd_variant_reference(name, x, heads, scale), torch.bfloat16)
+        if V.SCORES_F32[name]:
+            assert torch.equal(out, first_f), name
+    for order in ("phase", "loop"):
+        for G in (1, 2, 4):
+            assert torch.equal(X._launch_group_fwd(order, G, x, heads, scale), first_f)
+            assert torch.equal(X._launch_group_bwd(order, G, x, dout, heads, scale), first_b)
+    new = V.RAN + X.RAN - ran
+    assert sum(new.values()) == len(V._KERNELS) + 2 + 2 * 6
+    assert all(kernels == V.expected_kernels(key, False) for key, kernels in new), new
 
 
 def test_group_variant_refuses_a_g_that_does_not_fit(cuda_device):
