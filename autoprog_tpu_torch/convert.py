@@ -16,6 +16,9 @@ DeiT `patch_embed` is the patchify conv itself, with `dist_token` and
 
 The fused `qkv` out-axis keeps its (3, heads, d) order, which K1 relies on.
 
+`flax_to_torch_shard` takes a tree to one tensor-parallel rank's shard of it
+(`parallel/tp.py`: the full conversion, then `shard_tree`).
+
 `jax_payload_to_torch` turns a whole checkpoint of the JAX package (the
 tree `autoprog_tpu/train/checkpoint.py:build_payload` writes) into the
 port's payload: every tree through `flax_to_torch`, and the optax state
@@ -65,6 +68,16 @@ def flax_to_torch(params: Mapping[str, Any],
     if batch_stats:
         _flatten(batch_stats, "", out)
     return out
+
+
+def flax_to_torch_shard(params: Mapping[str, Any], m: int, count: int,
+                        batch_stats: Optional[Mapping[str, Any]] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """Shard `m` of `count` of a Flax tree under `--model-parallel count`:
+    `flax_to_torch`, then `parallel/tp.py:shard_tree` (whose `gather_tree`
+    of every shard gives the full conversion back bit for bit)."""
+    from autoprog_tpu_torch.parallel.tp import shard_tree
+    return shard_tree(flax_to_torch(params, batch_stats), m, count)
 
 
 ADAM_KEYS = ("count", "mu", "nu")

@@ -22,6 +22,16 @@ generators are seeded from the seed plus the rank; every rank takes as many
 steps an epoch as the rank with the fewest batches; the logged loss and the
 eval sums are reduced over the ranks, and only rank 0 logs, writes images
 and checkpoints and traces the profile.
+
+Under `--model-parallel M` (`parallel/tp.py`) "the ranks" above mean the data
+group: the loaders shard by the data index, so the M ranks of a model group
+load the same rows, and the step's generators are seeded from the data index,
+so that they drop the same paths. Each rank holds its shard of the blocks:
+every build makes the full model from the seed, broadcasts rank 0's over the
+world and shards it; a stage rebuild gathers the full trees over the model
+group, grows them (`prog/growth.py`) and shards the result, as the JAX package
+re-applies `shard_state_tp` after growth; a resume shards the full file, and
+a checkpoint gathers its leaves (`train/checkpoint.py`).
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ from autoprog_tpu_torch.data.mixup import Mixup
 from autoprog_tpu_torch.data.transforms import TrainTransform
 from autoprog_tpu_torch.utils.meters import AverageMeter
 from autoprog_tpu_torch.losses import build_train_loss
-from autoprog_tpu_torch.parallel import mesh
+from autoprog_tpu_torch.parallel import mesh, tp
 from autoprog_tpu_torch.platform import default_device
 from autoprog_tpu_torch.prog.growth import grow_batch_stats, grow_params, shrink_params
 from autoprog_tpu_torch.registry import create_model
@@ -88,14 +98,23 @@ def model_kwargs(args, dp: float, dtype) -> Dict[str, Any]:
     return kw
 
 
-def init_model_state(ctx: TrainContext, model_name: str, dp: float, seed: int) -> None:
+def init_model_state(ctx: TrainContext, model_name: str, dp: float,
+                     seed: int) -> Dict[str, torch.Tensor]:
     """Model (random init from `seed`), optimizer, EMA trees and step
-    builder for `model_name`, installed in ctx."""
+    builder for `model_name`, installed in ctx. Returns the full model's
+    parameters (this rank's model's own without tensor parallelism): the
+    template of a stage rebuild."""
     args = ctx.args
     mdef = create_model(model_name)
+    kwargs = model_kwargs(args, dp, ctx.compute_dtype())
     torch.manual_seed(seed)
-    model = mdef.make(**model_kwargs(args, dp, ctx.compute_dtype())).to(ctx.device)
-    mesh.replicate(model)
+    model = mdef.make(**kwargs).to(ctx.device)
+    mesh.replicate(model, world=True)
+    full = {n: p.detach() for n, p in model.named_parameters()}
+    if mesh.model_count() > 1:
+        buffers = dict(model.named_buffers())
+        model = mdef.make(**kwargs, model_parallel=mesh.model_count()).to(ctx.device)
+        tp.load_shards(model, full, buffers)
     optimizer = create_optimizer(args, model)
     ema_decays = ctx.ema_decays if args.model_ema else ()
     ema_dtype = torch.bfloat16 if getattr(args, "model_ema_bf16", False) else None
@@ -106,18 +125,24 @@ def init_model_state(ctx: TrainContext, model_name: str, dp: float, seed: int) -
         num_classes=args.num_classes or 1000, smoothing=args.smoothing,
         token_label=args.token_label, has_token_label_data=bool(args.token_label_data),
         grad_clip=create_grad_clip(args), device=ctx.device, seed=seed,
-        rank=mesh.process_index(),
+        rank=mesh.data_index(),
         norm_mean=ctx.data_config["mean"], norm_std=ctx.data_config["std"],
         re_count=getattr(args, "recount", 1))
     ctx.mdef = mdef
-    n = sum(p.numel() for p in model.parameters())
+    n = sum(p.numel() for p in full.values())
     _logger.info("Model %s created, param count: %d", model_name, n)
+    return full
 
 
 def setup(args, args_text: str, *, prog: bool = False, output_dir: str = "",
           initial_model: Optional[str] = None) -> TrainContext:
     """Common setup of both trainers; `initial_model` is the first stage's
-    architecture where it differs from `args.model`."""
+    architecture where it differs from `args.model`. The process grid of
+    `--model-parallel` is laid out at the process's start
+    (`main.start_process`)."""
+    if getattr(args, "model_parallel", 1) != mesh.model_count():
+        raise ValueError(f"--model-parallel {args.model_parallel} on a grid of model size "
+                         f"{mesh.model_count()} (mesh.init_grid lays it out)")
     device = default_device()
     if args.num_classes is None:
         args.num_classes = 1000
@@ -136,10 +161,11 @@ def setup(args, args_text: str, *, prog: bool = False, output_dir: str = "",
 
 
 def _shard(batch_size: int) -> Dict[str, int]:
-    """This rank's loader arguments: its share of the global batch and its
-    place among the ranks."""
-    return dict(batch_size=max(batch_size // mesh.process_count(), 1),
-                process_index=mesh.process_index(), process_count=mesh.process_count())
+    """This rank's loader arguments: its data group's share of the global
+    batch and its place in the data axis (the ranks of a model group load the
+    same rows)."""
+    return dict(batch_size=max(batch_size // mesh.data_count(), 1),
+                process_index=mesh.data_index(), process_count=mesh.data_count())
 
 
 def make_train_loader(ctx: TrainContext, *, aa: str, re_prob: float, resize,
@@ -300,7 +326,7 @@ def train_one_epoch(ctx: TrainContext, epoch: int, loader: Loader, *, r: int,
     loss_sum = None
     n_steps = 0
     nb, batches = epoch_batches(loader)
-    world = mesh.process_count()
+    world = mesh.data_count()
     end = epoch_start = time.time()
     last_log_idx, last_log_t = 0, end
     profile = _Profile(args, ctx.device, epoch, nb)
@@ -360,7 +386,8 @@ def _save_image_grid(images, path: str, data_config) -> None:
 def evaluate(ctx: TrainContext, loader: Loader, *, keep=None, params=None,
              log_suffix: str = "") -> Dict[str, float]:
     """Validation loop: top-1 / top-5 / loss, summed on the device and read
-    once at the end (summed over the ranks first: every rank must call it).
+    once at the end (summed over the data group first: every rank must call
+    it).
     Partial final batches pad to the full batch size."""
     keys = ("loss_sum", "top1_sum", "top5_sum", "count")
     acc = {k: torch.zeros((), device=ctx.device) for k in keys}
@@ -409,12 +436,13 @@ def create_stage_model_and_state(ctx: TrainContext, new_model_name: str, *, dp: 
     args = ctx.args
     prev_state = ctx.state
     prev_layers = tuple(ctx.mdef.arch.layers)
-    prev_params = {n: p.detach() for n, p in prev_state.params.items()}
-    prev_ema = prev_state.ema_params
+    # under tensor parallelism the remappers work on the full trees
+    prev_params = tp.gather_local({n: p.detach() for n, p in prev_state.params.items()})
+    prev_ema = tuple(tp.gather_local(e) for e in prev_state.ema_params)
 
-    init_model_state(ctx, new_model_name, dp, args.seed + 1000 + seed_offset)
+    template = init_model_state(ctx, new_model_name, dp, args.seed + 1000 + seed_offset)
+    ema_templates = [tp.gather_local(e) for e in ctx.state.ema_params]
     new_layers = tuple(ctx.mdef.arch.layers)
-    template = {n: p.detach() for n, p in ctx.state.params.items()}
     grow = dict(src_layers=prev_layers, dst_layers=new_layers)
 
     if load == "slice":
@@ -441,14 +469,14 @@ def create_stage_model_and_state(ctx: TrainContext, new_model_name: str, *, dp: 
         else:
             new_params = grow_params(prev_params, template, mode="clone", **grow)
         # each EMA tree grows against its own template
-        new_ema = tuple(grow_params(e, ctx.state.ema_params[i], mode="clone", **grow)
+        new_ema = tuple(grow_params(e, ema_templates[i], mode="clone", **grow)
                         for i, e in enumerate(prev_ema))
     elif load == "super":
         shrink = dict(base_layers=new_layers, super_layers=prev_layers,
                       dst_layers=new_layers, base_l=origin_l, super_l=sum(prev_layers),
                       dst_l=sum(new_layers), family=getattr(ctx.mdef.arch, "family", "volo"))
         new_params = shrink_params(prev_params, template, **shrink)
-        new_ema = tuple(shrink_params(e, ctx.state.ema_params[i], **shrink)
+        new_ema = tuple(shrink_params(e, ema_templates[i], **shrink)
                         for i, e in enumerate(prev_ema))
     elif load == "":
         return  # fresh init
@@ -456,14 +484,11 @@ def create_stage_model_and_state(ctx: TrainContext, new_model_name: str, *, dp: 
         raise ValueError(f"unknown load mode {load!r}")
 
     new_stats = grow_batch_stats(prev_state.batch_stats, ctx.state.batch_stats, **grow)
-    with torch.no_grad():
-        # in place: the new optimizer already holds these parameters
-        for n, p in ctx.state.model.named_parameters():
-            p.copy_(new_params[n])
-        for n, b in ctx.state.model.named_buffers():
-            b.copy_(new_stats[n])
-    ctx.state.ema_params = new_ema
-    mesh.replicate(ctx.state.model, *new_ema)
+    # in place (the new optimizer already holds these parameters), this
+    # rank's shards under tensor parallelism
+    tp.load_shards(ctx.state.model, new_params, new_stats)
+    ctx.state.ema_params = tuple(tp.shard_tree(e) for e in new_ema)
+    mesh.replicate(ctx.state.model, *ctx.state.ema_params)
 
 
 def ckpt_payload(ctx: TrainContext, stage_info: Dict[str, Any]) -> Dict[str, Any]:
@@ -484,6 +509,7 @@ def resume_from(ctx: TrainContext, ckpt: Dict[str, Any]) -> int:
     if arch and arch != ctx.mdef.name:
         stage_info = ckpt.get("stage_info") or {}
         init_model_state(ctx, arch, float(stage_info.get("dp", 0.0)), ctx.args.seed)
+    ckpt = tp.shard_payload(ckpt, ctx.state.model, ctx.state.optimizer)
     restore_state(ckpt, ctx.state, restore_opt=not ctx.args.no_resume_opt)
     mesh.replicate(ctx.state.model, *ctx.state.ema_params)
     if hasattr(ctx.schedule, "load_state_dict") and "lr_schedule" in ckpt:

@@ -5,9 +5,8 @@
 
 The flags are the port's own `config.py` (a copy of the JAX package's, so
 both trainers take the same command line). The device is
-`AUTOPROG_TORCH_DEVICE` (default cuda; see platform.py). `--model-parallel`
-and the tfds/ and hfds/ datasets, whose machinery is not ported, raise
-NotImplementedError.
+`AUTOPROG_TORCH_DEVICE` (default cuda; see platform.py). The tfds/ and hfds/
+datasets, whose machinery is not ported, raise NotImplementedError.
 
 `--resume` (either package's checkpoint; then `--start-epoch` overrides the
 epoch), `--finetune` and `--initial-checkpoint` are each followed by one
@@ -19,6 +18,13 @@ Data parallel across processes, one rank per GPU (`parallel/mesh.py`):
 
 `-b` is the global batch; each rank loads `-b // world` of it. Only rank 0
 makes the output directory, logs and writes checkpoints.
+
+Tensor parallel (`parallel/tp.py`) with `--model-parallel M` (M divides the
+world and every head count): the ranks form a (data, model) grid, each
+model group of M ranks holds one replica's shards and loads `-b // (world /
+M)` rows; checkpoints hold full tensors:
+
+    torchrun --nproc_per_node 8 -m autoprog_tpu_torch.main ... --model-parallel 2
 """
 
 from __future__ import annotations
@@ -51,8 +57,6 @@ def check_dataset(dataset: str) -> None:
 
 def check_ported(args) -> None:
     """Refuse flags whose machinery the port does not have yet."""
-    if getattr(args, "model_parallel", 1) > 1:
-        raise NotImplementedError("--model-parallel: not ported to autoprog_tpu_torch yet")
     check_dataset(args.dataset)
 
 
@@ -69,19 +73,21 @@ def load_initial_weights(ctx, loader_eval) -> None:
 
 
 def start_process(args, model_name: str, suffix: str, splits: int) -> str:
-    """Join torchrun's process group where there is one; the output
-    directory and the log file on rank 0 (other ranks log warnings only, to
-    stderr); the JAX entry points' per-rank batch check. Returns the output
-    directory ("" on ranks other than 0)."""
+    """Join torchrun's process group where there is one and lay out the
+    `--model-parallel` grid (a ValueError where M does not divide the
+    world); the output directory and the log file on rank 0 (other ranks log
+    warnings only, to stderr); the JAX entry points' per-rank batch check.
+    Returns the output directory ("" on ranks other than 0)."""
     mesh.maybe_init_distributed()
+    mesh.init_grid(getattr(args, "model_parallel", 1))
     output_dir = make_output_dir(args.output, model_name, suffix=suffix) \
         if mesh.is_primary() else ""
     setup_logging(os.path.join(output_dir, "log.txt") if output_dir else "",
                   level=logging.INFO if output_dir else logging.WARNING)
-    per_rank = args.batch_size // mesh.process_count()
+    per_rank = args.batch_size // mesh.data_count()
     if per_rank % splits != 0:
         raise SystemExit(f"per-rank batch size {per_rank} (-b {args.batch_size} over "
-                         f"{mesh.process_count()} ranks) must be divisible by "
+                         f"{mesh.data_count()} data ranks) must be divisible by "
                          f"batch splits {splits}")
     return output_dir
 

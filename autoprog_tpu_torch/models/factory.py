@@ -14,6 +14,7 @@ from typing import Any, Dict, Tuple, Union
 import torch
 
 from autoprog_tpu_torch.config import parse_variant_name
+from autoprog_tpu_torch.parallel.tp import validate_tp
 from autoprog_tpu_torch.prog.depth import volo_depth_split
 from autoprog_tpu_torch.models.vit import VisionTransformer
 from autoprog_tpu_torch.models.volo import VOLO
@@ -82,19 +83,28 @@ class ModelDef:
     arch: Union[VoloArch, DeitArch]
     default_cfg: Dict[str, Any]
 
+    @property
+    def num_heads(self) -> Tuple[int, ...]:
+        heads = self.arch.num_heads
+        return tuple(heads) if isinstance(heads, (tuple, list)) else (heads,)
+
     def make(self, *, num_classes: int = 1000, img_size: int = 224,
              drop_rate: float = 0.0, drop_path_rate: float = 0.0,
              attn_drop_rate: float = 0.0, dtype=torch.bfloat16,
              mix_token=None, return_dense=None, bn_momentum=None, bn_eps=None,
-             aux_fusion: str = "max", remat="") -> Union[VOLO, VisionTransformer]:
+             aux_fusion: str = "max", remat="",
+             model_parallel: int = 1) -> Union[VOLO, VisionTransformer]:
+        """The model; `model_parallel` M > 1 builds this rank's shard of it
+        (`parallel/tp.py`; M must divide every head count)."""
         a = self.arch
+        validate_tp(model_parallel, self.num_heads)
         if isinstance(a, DeitArch):
             return VisionTransformer(
                 embed_dim=a.embed_dim, depth=a.depth, num_heads=a.num_heads,
                 patch_size=a.patch_size, mlp_ratio=a.mlp_ratio, num_classes=num_classes,
                 distilled=a.distilled, img_size=img_size, drop_rate=drop_rate,
                 attn_drop_rate=attn_drop_rate, drop_path_rate=drop_path_rate, dtype=dtype,
-                remat=remat)
+                remat=remat, model_parallel=model_parallel)
         bn_kw = {}
         if bn_momentum is not None:
             bn_kw["bn_momentum"] = bn_momentum
@@ -109,7 +119,8 @@ class ModelDef:
                     drop_path_rate=drop_path_rate,
                     mix_token=True if mix_token is None else mix_token,
                     return_dense=True if return_dense is None else return_dense,
-                    dtype=dtype, aux_fusion=aux_fusion, remat=remat, **bn_kw)
+                    dtype=dtype, aux_fusion=aux_fusion, remat=remat,
+                    model_parallel=model_parallel, **bn_kw)
 
 
 def volo_variant_arch(h: int, l: int) -> VoloArch:

@@ -28,6 +28,13 @@ and follow Flax: keep mask ~ Bernoulli(1 - rate), x / keep where kept.
 
 `remat_call` runs an outlooker or transformer block under
 `torch.utils.checkpoint` for `--remat full | dots`.
+
+Tensor parallelism (`model_parallel` M > 1, `parallel/tp.py`): `Mlp`,
+`Attention`, `OutlookAttention` and `ClassAttention` hold this rank's shard of
+their column-parallel layers (output features / M; `qkv` and `kv` by heads)
+and of their row-parallel `proj` / `fc2` (input features / M), and
+`heads / M` heads. The input goes through `tp.copy_to_model` and the output
+through `tp.row_parallel`; K1 and K2 run on the local heads.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from autoprog_tpu_torch.ops.outlook import outlook_attention
-from autoprog_tpu_torch.parallel import mesh
+from autoprog_tpu_torch.parallel import mesh, tp
 from autoprog_tpu_torch.ops.unfold import avg_pool_ceil
 
 _TRUNC = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
@@ -203,7 +210,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, train: bool):
         xf = x.float()
-        if train and mesh.process_count() > 1:
+        if train and mesh.data_count() > 1:
             mean, var = self._global_stats(xf)
         elif train:
             mean = xf.mean((0, 2, 3))
@@ -221,8 +228,8 @@ class BatchNorm(nn.Module):
 
     @staticmethod
     def _global_stats(xf):
-        """Mean and biased variance over every rank's batch: one all-reduce
-        of (sum x, sum x^2, count)."""
+        """Mean and biased variance over the data group's batch: one
+        all-reduce of (sum x, sum x^2, count)."""
         c = xf.shape[1]
         count = xf.new_full((1,), xf.numel() // c)
         sums = mesh.sum_over_ranks(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
@@ -231,18 +238,30 @@ class BatchNorm(nn.Module):
         return mean, (sums[c:2 * c] / sums[2 * c] - mean * mean).clamp_min(0.0)
 
 
+def _local(n: int, model_parallel: int, what: str) -> int:
+    """n / model_parallel, where it divides."""
+    if n % model_parallel:
+        raise ValueError(f"{what} {n} is not divisible by model_parallel={model_parallel}")
+    return n // model_parallel
+
+
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, out: Optional[int] = None,
-                 drop: float = 0.0, dtype: torch.dtype = torch.bfloat16):
+                 drop: float = 0.0, dtype: torch.dtype = torch.bfloat16,
+                 model_parallel: int = 1):
         super().__init__()
-        self.drop = drop
+        self.drop, self.tp = drop, model_parallel > 1
+        hidden = _local(hidden, model_parallel, "hidden width")
         self.fc1 = Dense(dim, hidden, dtype=dtype)
         self.fc2 = Dense(hidden, out or dim, dtype=dtype)
 
     def forward(self, x, train: bool = False, gen=None):
+        if self.tp:
+            x = tp.copy_to_model(x)
         x = F.gelu(self.fc1(x), approximate="tanh")
         x = dropout(x, self.drop, train, gen)
-        return dropout(self.fc2(x), self.drop, train, gen)
+        y = tp.row_parallel(self.fc2, x) if self.tp else self.fc2(x)
+        return dropout(y, self.drop, train, gen)
 
 
 class Attention(nn.Module):
@@ -250,23 +269,32 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, model_parallel: int = 1):
         super().__init__()
-        self.num_heads, self.attn_drop, self.proj_drop = num_heads, attn_drop, proj_drop
-        self.dtype = dtype
-        self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
-        self.proj = Dense(dim, dim, dtype=dtype)
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
+        self.dtype, self.tp = dtype, model_parallel > 1
+        self.head_dim = dim // num_heads
+        self.num_heads = _local(num_heads, model_parallel, "head count")   # this rank's
+        inner = self.num_heads * self.head_dim
+        self.qkv = Dense(dim, 3 * inner, bias=qkv_bias, dtype=dtype)
+        self.proj = Dense(inner, dim, dtype=dtype)
+
+    def _proj(self, out, train, gen):
+        y = tp.row_parallel(self.proj, out) if self.tp else self.proj(out)
+        return dropout(y, self.proj_drop, train, gen)
 
     def forward(self, x, train: bool = False, gen=None):
-        *lead, N, C = x.shape
-        heads = self.num_heads
-        head_dim = C // heads
+        if self.tp:
+            x = tp.copy_to_model(x)
+        *lead, N, _ = x.shape
+        heads, head_dim = self.num_heads, self.head_dim
+        C = heads * head_dim
         scale = head_dim ** -0.5
         qkv = self.qkv(x)
         if _use_fused_attn(len(lead), self.attn_drop, N, head_dim, x.device):
             from autoprog_tpu_torch.ops.attention import mhsa_fused_qkv
             out = mhsa_fused_qkv(qkv.contiguous(), heads, scale)
-            return dropout(self.proj(out), self.proj_drop, train, gen)
+            return self._proj(out, train, gen)
         # the JAX package's unfused (XLA) path, both branches
         q, k, v = qkv.reshape(*lead, N, 3, heads, head_dim).unbind(-3)
         attn = torch.einsum("...nhd,...mhd->...hnm", q.float(), k.float())
@@ -281,7 +309,7 @@ class Attention(nn.Module):
         attn = dropout(attn, self.attn_drop, train, gen)
         out = torch.einsum("...hnm,...mhd->...nhd", attn.float(), v.float())
         out = out.to(self.dtype).reshape(*lead, N, C)
-        return dropout(self.proj(out), self.proj_drop, train, gen)
+        return self._proj(out, train, gen)
 
 
 def _use_fused_outlook(kernel_size: int, stride: int, padding: int,
@@ -310,18 +338,22 @@ class OutlookAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, kernel_size: int = 3,
                  padding: int = 1, stride: int = 1, qkv_bias: bool = False,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, model_parallel: int = 1):
         super().__init__()
-        self.num_heads, self.kernel_size = num_heads, kernel_size
+        self.kernel_size, self.tp = kernel_size, model_parallel > 1
         self.padding, self.stride = padding, stride
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
-        self.v = Dense(dim, dim, bias=qkv_bias, dtype=dtype)
-        self.attn = Dense(dim, kernel_size ** 4 * num_heads, dtype=dtype)
-        self.proj = Dense(dim, dim, dtype=dtype)
+        self.head_dim = dim // num_heads
+        self.num_heads = _local(num_heads, model_parallel, "head count")   # this rank's
+        inner = self.num_heads * self.head_dim
+        self.v = Dense(dim, inner, bias=qkv_bias, dtype=dtype)
+        self.attn = Dense(dim, kernel_size ** 4 * self.num_heads, dtype=dtype)
+        self.proj = Dense(inner, dim, dtype=dtype)
 
     def forward(self, x, train: bool = False, gen=None):
-        C = x.shape[-1]
-        head_dim = C // self.num_heads
+        if self.tp:
+            x = tp.copy_to_model(x)
+        head_dim = self.head_dim
         v = self.v(x)
         logits = self.attn(avg_pool_ceil(x, self.stride))
         if self.attn_drop:
@@ -335,7 +367,8 @@ class OutlookAttention(nn.Module):
             out = outlook_attention(v, logits, num_heads=self.num_heads,
                                     kernel_size=self.kernel_size, stride=self.stride,
                                     padding=self.padding, scale=head_dim ** -0.5)
-        return dropout(self.proj(out), self.proj_drop, train, gen)
+        y = tp.row_parallel(self.proj, out) if self.tp else self.proj(out)
+        return dropout(y, self.proj_drop, train, gen)
 
 
 class ClassAttention(nn.Module):
@@ -343,17 +376,21 @@ class ClassAttention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, head_dim: Optional[int] = None,
                  qkv_bias: bool = False, attn_drop: float = 0.0,
-                 proj_drop: float = 0.0, dtype: torch.dtype = torch.bfloat16):
+                 proj_drop: float = 0.0, dtype: torch.dtype = torch.bfloat16,
+                 model_parallel: int = 1):
         super().__init__()
-        self.num_heads = num_heads
         self.head_dim = head_dim or dim // num_heads
-        inner = self.head_dim * num_heads
+        self.num_heads = _local(num_heads, model_parallel, "head count")   # this rank's
+        self.tp = model_parallel > 1
+        inner = self.head_dim * self.num_heads
         self.attn_drop, self.proj_drop, self.dtype = attn_drop, proj_drop, dtype
         self.kv = Dense(dim, 2 * inner, bias=qkv_bias, dtype=dtype)
         self.q = Dense(dim, inner, bias=qkv_bias, dtype=dtype)
         self.proj = Dense(inner, dim, dtype=dtype)
 
     def forward(self, x, train: bool = False, gen=None):
+        if self.tp:
+            x = tp.copy_to_model(x)
         B, N, _ = x.shape
         h, hd = self.num_heads, self.head_dim
         scale = hd ** -0.5
@@ -364,7 +401,8 @@ class ClassAttention(nn.Module):
         attn = dropout(attn, self.attn_drop, train, gen)
         cls = torch.einsum("bhqn,bnhd->bqhd", attn.float(), v.float())
         cls = cls.to(self.dtype).reshape(B, 1, h * hd)
-        return dropout(self.proj(cls), self.proj_drop, train, gen)
+        y = tp.row_parallel(self.proj, cls) if self.tp else self.proj(cls)
+        return dropout(y, self.proj_drop, train, gen)
 
 
 class Outlooker(nn.Module):
@@ -373,14 +411,16 @@ class Outlooker(nn.Module):
     def __init__(self, dim: int, num_heads: int, kernel_size: int = 3,
                  padding: int = 1, stride: int = 1, mlp_ratio: float = 3.0,
                  qkv_bias: bool = False, attn_drop: float = 0.0,
-                 drop_path: float = 0.0, dtype: torch.dtype = torch.bfloat16):
+                 drop_path: float = 0.0, dtype: torch.dtype = torch.bfloat16,
+                 model_parallel: int = 1):
         super().__init__()
         self.drop_path = drop_path
         self.norm1 = LayerNorm(dim, dtype)
         self.attn = OutlookAttention(dim, num_heads, kernel_size, padding, stride,
-                                     qkv_bias, attn_drop, dtype=dtype)
+                                     qkv_bias, attn_drop, dtype=dtype,
+                                     model_parallel=model_parallel)
         self.norm2 = LayerNorm(dim, dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, model_parallel=model_parallel)
 
     def forward(self, x, train: bool = False, gen=None):
         x = x + drop_path(self.attn(self.norm1(x), train, gen), self.drop_path, train, gen)
@@ -392,13 +432,15 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 3.0,
                  qkv_bias: bool = False, attn_drop: float = 0.0,
-                 drop_path: float = 0.0, dtype: torch.dtype = torch.bfloat16):
+                 drop_path: float = 0.0, dtype: torch.dtype = torch.bfloat16,
+                 model_parallel: int = 1):
         super().__init__()
         self.drop_path = drop_path
         self.norm1 = LayerNorm(dim, dtype)
-        self.attn = Attention(dim, num_heads, qkv_bias, attn_drop, dtype=dtype)
+        self.attn = Attention(dim, num_heads, qkv_bias, attn_drop, dtype=dtype,
+                              model_parallel=model_parallel)
         self.norm2 = LayerNorm(dim, dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, model_parallel=model_parallel)
 
     def forward(self, x, train: bool = False, gen=None):
         x = x + drop_path(self.attn(self.norm1(x), train, gen), self.drop_path, train, gen)
@@ -411,14 +453,15 @@ class ClassBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, head_dim: Optional[int] = None,
                  mlp_ratio: float = 3.0, qkv_bias: bool = False, drop: float = 0.0,
                  attn_drop: float = 0.0, drop_path: float = 0.0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, model_parallel: int = 1):
         super().__init__()
         self.drop_path = drop_path
         self.norm1 = LayerNorm(dim, dtype)
         self.attn = ClassAttention(dim, num_heads, head_dim, qkv_bias, attn_drop,
-                                   drop, dtype=dtype)
+                                   drop, dtype=dtype, model_parallel=model_parallel)
         self.norm2 = LayerNorm(dim, dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop, dtype=dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop, dtype=dtype,
+                       model_parallel=model_parallel)
 
     def forward(self, x, train: bool = False, gen=None):
         cls = x[:, :1]

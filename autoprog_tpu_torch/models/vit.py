@@ -11,6 +11,9 @@ stock model for the progressive engine:
     the input; the prefix tokens' embeddings are kept.
   * `remat` ("" | "full" | "dots") recomputes the blocks in the backward
     (`layers.remat_call`).
+  * `model_parallel` M > 1 builds every block on this rank's shard
+    (`parallel/tp.py`); the patchify conv, tokens, pos-embed, norm and heads
+    stay whole.
 
 Blocks are named `s0b{i}` so that `prog/growth.py` treats VOLO and DeiT
 alike. The distilled model returns (x_cls, x_dist) in training and the mean
@@ -43,7 +46,7 @@ class VisionTransformer(nn.Module):
                  num_classes: int = 1000, distilled: bool = False, img_size: int = 224,
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
                  drop_path_rate: float = 0.0, dtype: torch.dtype = torch.bfloat16,
-                 remat=""):
+                 remat="", model_parallel: int = 1):
         super().__init__()
         self.remat = remat
         self.embed_dim, self.depth, self.patch_size = embed_dim, depth, patch_size
@@ -59,7 +62,8 @@ class VisionTransformer(nn.Module):
         for i in range(depth):
             dp = drop_path_rate * i / max(depth - 1, 1)
             self.add_module(f"s0b{i}", TransformerBlock(
-                embed_dim, num_heads, mlp_ratio, qkv_bias, attn_drop_rate, dp, dtype))
+                embed_dim, num_heads, mlp_ratio, qkv_bias, attn_drop_rate, dp, dtype,
+                model_parallel))
         self.norm = LayerNorm(embed_dim, dtype)
         self.head = Dense(embed_dim, num_classes, dtype=dtype)
         if distilled:

@@ -13,6 +13,9 @@ MixToken on the embeddings in training and `cls + 0.5 * max(aux)` at eval.
     box is drawn from `mix_gen` (a CPU `torch.Generator`), outside the
     blocks that `remat` ("" | "full" | "dots", `layers.remat_call`)
     recomputes in the backward.
+  * `model_parallel` M > 1 builds every block and post block on this rank's
+    shard (`parallel/tp.py`); the stem, `patch_embed`, `pos_embed`,
+    `cls_token`, `norm`, the heads and the downsamples stay whole.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ class VOLO(nn.Module):
                  mix_token: bool = True, pooling_scale: int = 2, out_kernel: int = 3,
                  out_stride: int = 2, out_padding: int = 1, aux_fusion: str = "max",
                  dtype: torch.dtype = torch.bfloat16, bn_momentum: float = 0.9,
-                 bn_eps: float = 1e-5, remat=""):
+                 bn_eps: float = 1e-5, remat="", model_parallel: int = 1):
         super().__init__()
         self.remat = remat
         self.layers = tuple(layers)
@@ -81,10 +84,11 @@ class VOLO(nn.Module):
                 if self.outlook[s]:
                     blk = Outlooker(embed_dims[s], num_heads[s], out_kernel, out_padding,
                                     out_stride, mlp_ratios[s], qkv_bias, attn_drop_rate,
-                                    dpr(gidx), dtype)
+                                    dpr(gidx), dtype, model_parallel)
                 else:
                     blk = TransformerBlock(embed_dims[s], num_heads[s], mlp_ratios[s],
-                                           qkv_bias, attn_drop_rate, dpr(gidx), dtype)
+                                           qkv_bias, attn_drop_rate, dpr(gidx), dtype,
+                                           model_parallel)
                 self.add_module(f"s{s}b{i}", blk)
                 gidx += 1
             if self.downsamples[s]:
@@ -99,7 +103,8 @@ class VOLO(nn.Module):
                                                         mlp_ratio=mlp_ratios[-1],
                                                         qkv_bias=qkv_bias,
                                                         attn_drop=attn_drop_rate,
-                                                        dtype=dtype))
+                                                        dtype=dtype,
+                                                        model_parallel=model_parallel))
         self.norm = LayerNorm(C, dtype)
         self.head = Dense(C, num_classes, dtype=dtype)
         if return_dense and not return_mean:

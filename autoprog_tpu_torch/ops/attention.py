@@ -41,7 +41,8 @@ transposed on the way in. Its gradients are three contiguous tensors.
 
 `LAUNCHES` counts kernel launches by the wrappers ("fwd", "bwd" for K1,
 "fused_fwd", "fused_bwd" for K5), `SHAPE_LAUNCHES` K1's per (side, tokens,
-head_dim); the twins do not count.
+heads, head_dim) (a tensor-parallel rank's heads are its own); the twins do
+not count.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ import torch
 #: kernel launches made by MhsaFusedQkv and MhsaFused (plain twins are not
 #: counted)
 LAUNCHES = {"fwd": 0, "bwd": 0, "fused_fwd": 0, "fused_bwd": 0}
-#: the same launches of K1 per ("fwd" or "bwd", tokens, head_dim)
+#: the same launches of K1 per ("fwd" or "bwd", tokens, heads, head_dim)
 SHAPE_LAUNCHES: "collections.Counter[tuple]" = collections.Counter()
 
 #: the router's limits (`autoprog_tpu/models/layers.py:_use_fused_attn`)
@@ -202,7 +203,7 @@ def _launch_fwd(qkv, num_heads, scale, scores_f32, want_stats: bool = False):
             _DTYPE_CODE[qkv.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mhsa_qkv_fwd")
     LAUNCHES["fwd"] += 1
-    SHAPE_LAUNCHES["fwd", n, C3 // 3 // num_heads] += 1
+    SHAPE_LAUNCHES["fwd", n, num_heads, C3 // 3 // num_heads] += 1
     return (out, stats) if want_stats else out
 
 
@@ -229,7 +230,7 @@ def _launch_bwd(qkv, dout, num_heads, scale, scores_f32, stats=None):
             _DTYPE_CODE[qkv.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mhsa_qkv_bwd")
     LAUNCHES["bwd"] += 1
-    SHAPE_LAUNCHES["bwd", n, C3 // 3 // num_heads] += 1
+    SHAPE_LAUNCHES["bwd", n, num_heads, C3 // 3 // num_heads] += 1
     return dqkv
 
 

@@ -40,7 +40,8 @@ there is no fallback. On a CPU tensor they run the plain twins below.
 `LAUNCHES` counts kernel launches by the wrappers; the twins do not count.
 `ROUTES` counts K2's launches by route and `PLANS` keeps the last launch of
 each side as the library planned it (route, heads per block, runs per image,
-threads, blocks, shared memory).
+threads, blocks, shared memory) with its heads (a tensor-parallel rank's
+heads are its own).
 """
 
 from __future__ import annotations
@@ -146,8 +147,8 @@ def _check_cuda(v: torch.Tensor, attn_logits: torch.Tensor, num_heads: int, what
         raise ValueError(f"{what}: v and logits must be contiguous")
 
 
-def _count(side: str, plan) -> None:
-    PLANS[side] = dict(zip(_PLAN_KEYS, plan))
+def _count(side: str, plan, num_heads: int) -> None:
+    PLANS[side] = dict(zip(_PLAN_KEYS, plan), heads=num_heads)
     ROUTES[f"{side}_{'rows' if plan[0] else 'general'}"] += 1
     LAUNCHES[side] += 1
 
@@ -167,7 +168,7 @@ def _launch_fwd(v, attn_logits, num_heads, scale, general: bool = False):
             float(scale), _DTYPE_CODE[v.dtype], int(general), ctypes.addressof(plan),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "outlook_fused_fwd")
-    _count("fwd", plan)
+    _count("fwd", plan, num_heads)
     return out
 
 
@@ -190,7 +191,7 @@ def _launch_bwd(v, attn_logits, g, num_heads, scale, general: bool = False):
             dlogits.data_ptr(), B, H, W, C, num_heads, float(scale), _DTYPE_CODE[v.dtype],
             int(general), ctypes.addressof(plan), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "outlook_fused_bwd")
-    _count("bwd", plan)
+    _count("bwd", plan, num_heads)
     return dv, dlogits
 
 

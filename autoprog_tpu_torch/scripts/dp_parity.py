@@ -76,14 +76,17 @@ def box(img_size: int):
 
 def setup(batch: int, dtype, *, seed: int = 0, model: str = "volo_d1",
           img_size: int = 224, num_classes: int = 1000, drop_path: float = 0.0,
-          device: str = "cuda"):
+          device: str = "cuda", bias_std: float = 0.0):
     """`model` from `seed` with AdamW, 4 EMAs and its step builder, and a
     synthetic token-label batch of `batch` rows drawn on the host from
     `seed` (the same rows in every process). Rank 0's parameters are
-    broadcast under a group."""
+    broadcast under a group; under the grid of `--model-parallel`
+    (`mesh.init_grid`) each rank then keeps its shard (`parallel/tp.py`).
+    `bias_std` > 0 draws every bias from N(0, bias_std) (the init leaves
+    them 0, where a fault in how a bias is added cannot show)."""
     from autoprog_tpu_torch import create_model
     from autoprog_tpu_torch.losses import build_train_loss
-    from autoprog_tpu_torch.parallel import mesh
+    from autoprog_tpu_torch.parallel import mesh, tp
     from autoprog_tpu_torch.train.optim import create_optimizer
     from autoprog_tpu_torch.train.state import TrainState
     from autoprog_tpu_torch.train.steps import StepBuilder
@@ -92,14 +95,28 @@ def setup(batch: int, dtype, *, seed: int = 0, model: str = "volo_d1",
                               token_label=True, token_label_size=g_side, ground_truth=False,
                               dense_weight=0.5, cls_weight=1.0)
     torch.manual_seed(seed)
-    net = create_model(model).make(num_classes=num_classes, img_size=img_size,
-                                   drop_path_rate=drop_path, dtype=dtype).to(device)
-    mesh.replicate(net)
+    kw = dict(num_classes=num_classes, img_size=img_size, drop_path_rate=drop_path,
+              dtype=dtype)
+    net = create_model(model).make(**kw)
+    if bias_std:
+        g = torch.Generator().manual_seed(7 + seed)
+        with torch.no_grad():
+            for n, p in net.named_parameters():
+                if n.endswith("bias"):
+                    p.normal_(0.0, bias_std, generator=g)
+    net = net.to(device)
+    mesh.replicate(net, world=True)
+    if mesh.model_count() > 1:
+        full = {n: p.detach() for n, p in net.named_parameters()}
+        buffers = dict(net.named_buffers())
+        net = create_model(model).make(**kw, model_parallel=mesh.model_count()).to(device)
+        tp.load_shards(net, full, buffers)
+        del full, buffers
     state = TrainState.create(model=net, optimizer=create_optimizer(args, net),
                               ema_decays=DECAYS)
     sb = StepBuilder(train_loss=build_train_loss(args), ema_decays=DECAYS,
                      num_classes=num_classes, token_label=True, has_token_label_data=True,
-                     device=torch.device(device), seed=seed, rank=mesh.process_index())
+                     device=torch.device(device), seed=seed, rank=mesh.data_index())
     g = torch.Generator().manual_seed(11 + seed)
     scores = torch.rand(batch, 5, g_side, g_side, generator=g)
     data = {"image": torch.randn(batch, img_size, img_size, 3, generator=g),

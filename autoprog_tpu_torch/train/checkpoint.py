@@ -11,7 +11,10 @@ Saving:
     the payload (the callers pass a function that makes it) and writes;
     every rank calls it and waits at a barrier after the write, so that a
     resume on any rank reads a whole file. A disabled saver keeps the same
-    ranking.
+    ranking. Under tensor parallelism the payload gathers every sharded leaf
+    over the model group (`parallel/tp.py`), so the other ranks of rank 0's
+    model group build it too, and rank 0 writes full tensors: the file has
+    the keys and shapes of a run without it.
 
 The payload carries the architecture name and stage record, parameters,
 BatchNorm stats, optimizer state, one EMA tree per decay, the resolved args
@@ -38,7 +41,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import torch
 
 from autoprog_tpu_torch.convert import jax_payload_to_torch
-from autoprog_tpu_torch.parallel import mesh
+from autoprog_tpu_torch.parallel import mesh, tp
 from autoprog_tpu_torch.train import flax_msgpack
 from autoprog_tpu_torch.train.optim import AdamWBf16Mu, NesterovSGD
 
@@ -97,6 +100,13 @@ class CheckpointSaver:
     def _cmp(self, a: float, b: float) -> bool:
         return a < b if self.decreasing else a > b
 
+    def _payload(self, make_payload: Callable[[], Dict[str, Any]]) -> Optional[Dict[str, Any]]:
+        """`make_payload()` on the rank that writes, and on the ranks of its
+        model group, whose shards the payload gathers; None elsewhere."""
+        if self.enabled or (mesh.model_count() > 1 and mesh.data_index() == 0):
+            return make_payload()
+        return None
+
     def save_checkpoint(self, make_payload: Callable[[], Dict[str, Any]], epoch: int,
                         metric: Optional[float] = None, prefix: str = ""
                         ) -> Tuple[Optional[float], Optional[int]]:
@@ -104,8 +114,9 @@ class CheckpointSaver:
         (best_metric, best_epoch). `prefix` names a separate series (the
         supernet search's "-search"). A disabled saver calls nothing and
         writes nothing."""
+        payload = self._payload(make_payload)
         if self.enabled:
-            self._write(make_payload(), epoch, metric, prefix)
+            self._write(payload, epoch, metric, prefix)
         if metric is not None and (self.best_metric is None
                                    or self._cmp(metric, self.best_metric)):
             self.best_metric, self.best_epoch = metric, epoch
@@ -142,8 +153,9 @@ class CheckpointSaver:
 
     def save_recovery(self, make_payload: Callable[[], Dict[str, Any]], epoch: int,
                       batch_idx: int) -> None:
+        payload = self._payload(make_payload)
         if self.enabled:
-            self._write_recovery(make_payload(), epoch, batch_idx)
+            self._write_recovery(payload, epoch, batch_idx)
         mesh.barrier("recovery")
 
     def _write_recovery(self, payload: Dict[str, Any], epoch: int, batch_idx: int) -> None:
@@ -173,17 +185,19 @@ class CheckpointSaver:
 
 def build_payload(*, state, args_text: str, arch_name: str,
                   stage_info: Dict[str, Any]) -> Dict[str, Any]:
+    """The payload of `state`, full tensors under tensor parallelism (a
+    collective over the model group)."""
     p: Dict[str, Any] = {
         "arch": arch_name,
         "stage_info": dict(stage_info),
-        "state_dict": _cpu(state.params),
+        "state_dict": _cpu(tp.gather_local(state.params)),
         "batch_stats": _cpu(state.batch_stats),
-        "optimizer": state.optimizer.state_dict(),
+        "optimizer": tp.gather_optimizer_state(state.model, state.optimizer),
         "step": state.step,
         "args_text": args_text,
     }
     for i, ema in enumerate(state.ema_params):
-        p[f"state_dict_ema_{i}"] = _cpu(ema)
+        p[f"state_dict_ema_{i}"] = _cpu(tp.gather_local(ema))
     return p
 
 

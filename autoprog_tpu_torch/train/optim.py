@@ -22,7 +22,13 @@ The two hand-written optimizers update all parameters of a group with
 
 Gradient clipping (`--clip-grad` with `--clip-mode` norm | value | agc)
 follows optax's `clip_by_global_norm`, `clip` and `adaptive_grad_clip`; the
-AGC unit norms account for the port's [out, in] / OIHW layouts.
+AGC unit norms account for the port's [out, in] / OIHW layouts. Under
+tensor parallelism (`parallel/tp.py`) they clip the logical gradient: `norm`
+takes the global norm with the sums of squares of the sharded leaves summed
+over the model group (the replicated leaves, equal on every rank, counted
+once); `agc` sums a unit's squares over the model group where the unit spans
+the shards (a row-parallel kernel's input axis, a column-parallel bias);
+`value` is elementwise.
 
 The schedules are a copy of the JAX module's host code: `train/optim.py`
 there imports optax, so it cannot be imported jax-free.
@@ -35,6 +41,8 @@ from typing import Callable, Iterable, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from autoprog_tpu_torch.parallel import tp
 
 NO_WD_NAMES = ("pos_embed", "cls_token", "dist_token")
 
@@ -173,22 +181,38 @@ def create_grad_clip(args) -> Callable[[Iterable], None] | None:
     c, mode = args.clip_grad, args.clip_mode
 
     def clip_norm(named):
-        grads = [p.grad for _, p in named]
-        norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
-        for g in grads:
-            g.copy_(torch.where(norm < c, g, g / norm * c))
+        """By the global norm of the logical gradient: the sums of squares
+        of the sharded leaves summed over the model group, the replicated
+        leaves' counted once."""
+        sq = [torch.linalg.vector_norm(p.grad.float()).square() for _, p in named]
+        sharded = [tp.param_spec(n, p.ndim) is not None for n, p in named]
+        zero = sq[0].new_zeros(())
+        norm = (tp.model_sum(sum((s for s, sh in zip(sq, sharded) if sh), zero))
+                + sum((s for s, sh in zip(sq, sharded) if not sh), zero)).sqrt()
+        for _, p in named:
+            p.grad.copy_(torch.where(norm < c, p.grad, p.grad / norm * c))
 
     def clip_value(named):
         for _, p in named:
             p.grad.clamp_(-c, c)
 
+    def unit_norms(name, p, dims):
+        """The unit norms of the gradient and of the parameter; summed over
+        the model group where the unit spans the shards."""
+        spec = tp.param_spec(name, p.ndim)
+        if spec is None or spec[0] not in dims:
+            return (torch.linalg.vector_norm(p.grad, dim=dims, keepdim=True),
+                    torch.linalg.vector_norm(p.detach(), dim=dims, keepdim=True))
+        sq = torch.stack([p.grad.square().sum(dims, keepdim=True),
+                          p.detach().square().sum(dims, keepdim=True)])
+        g_norm, p_norm = tp.model_sum(sq).to(p.dtype).sqrt().unbind(0)
+        return g_norm, p_norm
+
     def clip_agc(named, eps=1e-3, div_eps=1e-6):
         for name, p in named:
             dims = _unit_dims(name, p)
-            g_norm = torch.linalg.vector_norm(p.grad, dim=dims, keepdim=True)
-            max_norm = c * torch.linalg.vector_norm(p.detach(), dim=dims,
-                                                    keepdim=True).clamp_min(eps)
+            g_norm, p_norm = unit_norms(name, p, dims)
+            max_norm = c * p_norm.clamp_min(eps)
             clipped = p.grad * (max_norm / g_norm.clamp_min(div_eps))
             p.grad.copy_(torch.where(g_norm < max_norm, p.grad, clipped))
 

@@ -12,9 +12,17 @@ checkpoint has one. Without `--tta` and `--real-labels` each batch goes
 through the trainer's own `StepBuilder.eval_step` and the sums are taken in
 the trainer's order, so on the same checkpoint and samples the metrics
 equal the trainer's eval row exactly. The device is `AUTOPROG_TORCH_DEVICE`
-(default cuda; see platform.py). It runs in one process: launched as more
-than one rank (torchrun's `WORLD_SIZE` > 1, or under a process group of
-more than one rank) it raises NotImplementedError.
+(default cuda; see platform.py).
+
+Under torchrun (`torchrun --nproc_per_node N -m autoprog_tpu_torch.validate
+...`) the ranks split the eval set as the trainers' eval loader does: rank r
+takes samples r, r + N, ..., `-b // N` a batch, the last batch padded with
+rows of label -1 that no sum counts (`data/loader.py:pad_eval_batch`). The
+four metric sums are summed over the ranks at the end, so top-1 / top-5
+equal one process's exactly and the loss to the order of its f32 sums; rank
+0 alone logs the result and writes the CSV. The validator is data parallel
+only, as the JAX one (no `--model-parallel`). `--real-labels`, which looks
+samples up by their place in the whole set, runs in one process only.
 """
 
 from __future__ import annotations
@@ -131,14 +139,16 @@ def validate(args) -> dict:
                         image_size=img)
     tta = max(int(args.tta or 0), 1)
     use_preds = tta > 1 or bool(args.real_labels)
-    # a batch holds whole TTA groups, on every retry too
-    batch_size = max(tta, (args.batch_size // tta) * tta)
+    # a batch holds whole TTA groups, on every retry too; `-b` is global
+    per_rank = max(args.batch_size // mesh.data_count(), 1)
+    batch_size = max(tta, (per_rank // tta) * tta)
     while True:
         loader = create_loader(
             ds, input_size=img, batch_size=batch_size, is_training=False,
             crop_pct=args.crop_pct or data_config["crop_pct"],
             interpolation=data_config["interpolation"], mean=data_config["mean"],
-            std=data_config["std"], num_workers=args.workers, tta=tta)
+            std=data_config["std"], num_workers=args.workers, tta=tta,
+            process_index=mesh.data_index(), process_count=mesh.data_count())
         real = _RealLabels(args.real_labels, ds) if args.real_labels else None
         try:
             acc, src_idx = None, 0
@@ -157,8 +167,12 @@ def validate(args) -> dict:
                 if i % args.log_interval == 0:
                     _logger.info("Test: [%4d/%d]  Acc@1 %.4f", i, len(loader),
                                  100 * float(acc["top1_sum"]) / max(float(acc["count"]), 1))
-            sums = {k: float(v) for k, v in acc.items()} if acc is not None else \
-                {"loss_sum": 0.0, "top1_sum": 0.0, "top5_sum": 0.0, "count": 0.0}
+            keys = ("loss_sum", "top1_sum", "top5_sum", "count")
+            if acc is None:
+                acc = {k: torch.zeros((), device=device) for k in keys}
+            if mesh.process_group_active():
+                acc = dict(zip(keys, mesh.all_reduce_sum([acc[k] for k in keys])))
+            sums = {k: float(v) for k, v in acc.items()}
             break
         except torch.cuda.OutOfMemoryError:
             if batch_size <= tta:
@@ -235,11 +249,21 @@ def write_results(results_file: str, results: List[dict]) -> None:
 
 
 def main(argv=None):
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or mesh.process_count() > 1:
-        raise NotImplementedError("validate.py runs in one process: multi-rank evaluation "
-                                  "is not ported to autoprog_tpu_torch yet")
-    setup_logging()
     args = build_parser().parse_args(argv)
+    owns_group = not mesh.process_group_active()
+    try:
+        mesh.maybe_init_distributed()
+        if args.real_labels and mesh.process_count() > 1:
+            raise NotImplementedError("--real-labels looks samples up by their place in the "
+                                      "whole eval set: run it in one process")
+        setup_logging(level=logging.INFO if mesh.is_primary() else logging.WARNING)
+        return _main(args)
+    finally:
+        if owns_group:
+            mesh.destroy()
+
+
+def _main(args):
     checkpoints: List[str] = []
     if args.checkpoint and os.path.isdir(args.checkpoint):
         checkpoints = sorted(glob.glob(os.path.join(args.checkpoint, "*.ckpt")))
@@ -273,9 +297,9 @@ def main(argv=None):
         results.sort(key=lambda r: r["top1"], reverse=True)
     else:
         results.append(validate(args))
-    if args.results_file and results:
+    if args.results_file and results and mesh.is_primary():
         write_results(args.results_file, results)
-    if results:
+    if results and mesh.is_primary():
         print(f"--result\n{results[0]}")
     return results
 

@@ -20,7 +20,9 @@ back to the CPU or to a plain twin):
   3. kernel vs plain, on the card, bf16 and f32, tolerance 2 ulp of the
      largest value: K1 forward and backward at the volo_d1 shapes (B=32,
      C=384, 12 heads, n = 64/100/144/196), at the DeiT shapes (n = 197 and
-     198, head_dim 64), at the router's edge (n=1024, head_dim 128), with
+     198, head_dim 64), at a rank's heads under `--model-parallel 2` (phase
+     12's [64, 196, 6, 32] and [8, 196, 8, 48]), at the router's edge
+     (n=1024, head_dim 128), with
      f32 scores, on both sides of the resident path's limit (n = 256, 257),
      at n = 1, 15, 16, 17 and at a head_dim that is no multiple of 16; the
      forward returns the row statistics, which are held against the twin's
@@ -36,8 +38,10 @@ back to the CPU or to a plain twin):
      streaming ones), each call's kernels, as the library counts them beside
      each launch, the ones its shape routes to, and the most images a block
      of order phase takes at five resident shapes; K2 forward and
-     backward at B=32, C=192, 6 heads, H=W=16/20/24/28, at the d2 and d4
-     widths, at an odd shape (H=10, W=6, head_dim 48), with several runs of
+     backward at B=32, C=192, 6 heads, H=W=16/20/24/28, at a rank's heads
+     under `--model-parallel 2` (phase 12's v [64, 28, 28, 96] on 3 heads
+     and [8, 28, 28, 192] on 6; every row plan's head group divides its
+     heads), at the d2 and d4 widths, at an odd shape (H=10, W=6, head_dim 48), with several runs of
      rows per image, with more items than blocks, on one window, and through
      the general kernels (head_dim 20 in bf16, head_dim 3, and forced at the
      volo_d1 map), each launched twice for the same bits, each on the route
@@ -137,11 +141,43 @@ back to the CPU or to a plain twin):
      within |err| <= 1e-4 (|x| + max |x|)); (d) the b=128 bf16 step without a group, under
      NCCL world 1 and without again, the gradient all-reduce alone, and the
      2-rank gloo step's time, which is two ranks sharing one card through
-     the host, not a data-parallel speed.
+     the host, not a data-parallel speed;
+ 12. tensor parallelism (`--model-parallel 2`, `parallel/tp.py`), two gloo
+     ranks of one model group sharing cuda:0 (this script run as
+     `--tp-worker DIR ROLE`), two such worlds side by side, one taking (a),
+     (b) and (d), the other (c) and (e), against this process on the same
+     card:
+     (a) the volo_d1 f32 step on 32 images (biases drawn from N(0, 0.02))
+     against one process's, clean and with `scripts/tp_parity.py`'s two
+     planted faults (the row-parallel reduce skipped, the bias added on every
+     rank): the clean step within that script's limits, each fault beyond
+     them; (b) 4 bf16 steps at b=64 with K1 and K2 on (each rank launches K1
+     on 6 heads and K2's row kernels on 3, once a layer, as K1's launches by
+     shape and K2's plans record them), then 4 with both
+     off (no launch); the eval logits of 8 images at f32 through K1 + K2
+     against the unfused M = 2 path and against one process (1e-3), and at
+     bf16 against one process within 3 times the one-process bf16 logits'
+     distance from the f32 ones (each row-parallel output rounds its partial
+     products once more than the one-device layer, an error of the size
+     bf16 already makes); the per-step times, which are gloo through the
+     host on one card, not a tensor-parallel speed; (c) `main_prog
+     --auto-grow --model-parallel 2` with phase 5's arguments, cut to 2
+     steps an epoch and 1 probe batch and 1 timed step a candidate
+     (`TP_PROG_CUTS`; the widths, batch, epochs and stages are phase 5's):
+     one decision,
+     the replicated leaves bit-equal across the ranks, checkpoints from rank
+     0 alone with the keys and shapes of phase 5's, and its checkpoint-2.ckpt
+     resumed at M = 2 and at M = 1 (the state before the first step equal to
+     the file's bit for bit, the last step the unbroken run's); (d) volo_d4 (768 wide, 16
+     heads) at 224 px: one f32 step at global batch 8 against one process
+     within tp_parity's limits and one bf16 step that runs K1 at head_dim
+     48 in its 28 transformer layers; (e) `validate.py` over the two ranks
+     on 70 images at -b 16 against one process: top-1 and top-5 equal, the
+     loss within 1e-5.
 
 The line before the last is the kernel report (JSON): for each kernel its
-launches on its path (K1 and K2: phases 4 to 6 and 9 to 11, both ranks of
-phase 11 (b) counted; K1's rows per shape: phases
+launches on its path (K1 and K2: phases 4 to 6 and 9 to 12, both ranks of
+phase 11 (b) and of phase 12 (c) counted; K1's rows per shape: phases
 4 to 7 at that shape; `loop_img1`: its timing run of phase 8; K3, K4: the
 variants run of phase 8; K5 and the MHSA variants: the measurement scripts
 of phase 7), its
@@ -263,12 +299,14 @@ def phase_kernels(torch):
     worst = {"fwd": 0.0, "bwd": 0.0}
     # (B, n, heads, d, scores_f32): the four stage resolutions of volo_d1,
     # the router's edge, the AUTOPROG_ATTN_SCORES_F32=1 variant, DeiT small,
-    # plain and distilled (197 and 198 tokens, head_dim 64); then both sides
-    # of the resident path's limit, the smallest sequences and a head_dim
-    # that is no multiple of 16
+    # plain and distilled (197 and 198 tokens, head_dim 64), a rank's heads
+    # under --model-parallel 2 (phase 12: volo_d1's 6 of 12 at b=64, volo_d4's
+    # 8 of 16 at head_dim 48); then both sides of the resident path's limit,
+    # the smallest sequences and a head_dim that is no multiple of 16
     shapes = ([(32, n, 12, 32, False) for n in (64, 100, 144, 196)]
               + [(4, 1024, 3, 128, False), (32, 196, 12, 32, True),
-                 (8, 197, 6, 64, False), (8, 198, 6, 64, False)]
+                 (8, 197, 6, 64, False), (8, 198, 6, 64, False),
+                 (64, 196, 6, 32, False), (8, 196, 8, 48, False)]
               + [(8, n, 4, 32, sf) for n in (256, 257) for sf in (False, True)]
               + [(8, 256, 2, 64, False), (8, 200, 2, 72, False)]
               + [(4, n, 2, 32, False) for n in (1, 15, 16, 17)]
@@ -482,8 +520,11 @@ def phase_outlook_kernels(torch):
     # bench's (one run of 14 rows), the d2 and d4 widths, the d4 width with
     # more items than the card holds blocks, an odd shape (H != W, head_dim
     # 48), several runs of rows per image, one window, and the general
-    # kernels (head_dim 20 in bf16, 3, forced)
+    # kernels (head_dim 20 in bf16, 3, forced); a rank's heads under
+    # --model-parallel 2 (phase 12: volo_d1's 3 of 6 at b=64, volo_d4's 6 of
+    # 12 at b=8)
     shapes = ([(32, r, r, 192, 6, False) for r in (16, 20, 24, 28)]
+              + [(64, 28, 28, 96, 3, False), (8, 28, 28, 192, 6, False)]
               + [(64, 28, 28, 192, 6, False), (128, 28, 28, 192, 6, False),
                  (8, 28, 28, 256, 8, False), (8, 28, 28, 384, 12, False),
                  (96, 28, 28, 384, 12, False),
@@ -508,9 +549,9 @@ def phase_outlook_kernels(torch):
             torch.cuda.synchronize()
             tag = (f"B={B} H={H} W={W} C={C} heads={heads}"
                    + f" ({'rows' if plans['fwd']['rows'] else 'general'} forward "
-                   f"{list(plans['fwd'].values())[1:]}, "
+                   f"{list(plans['fwd'].values())[1:-1]}, "
                    f"{'rows' if plans['bwd']['rows'] else 'general'} backward "
-                   f"{list(plans['bwd'].values())[1:]})")
+                   f"{list(plans['bwd'].values())[1:-1]})")
             out, dv, dlogits = runs[0]
             _check(f"K2 fwd {tag}", worst, "fwd", out,
                    O.outlook_attention_fused_reference(v, logits, heads, scale), dt_name)
@@ -522,6 +563,10 @@ def phase_outlook_kernels(torch):
             rows = (C // heads) * v.element_size() % 16 == 0 and not general
             if bool(plans["fwd"]["rows"]) != rows or bool(plans["bwd"]["rows"]) != rows:
                 fail(f"K2 {tag} {dt_name}: took the {'general' if rows else 'row'} kernels")
+            if any(p["heads"] != heads or (p["rows"] and heads % p["heads_per_block"])
+                   for p in plans.values()):
+                fail(f"K2 {tag} {dt_name}: a row plan's head group does not divide the "
+                     f"launch's {heads} heads: {plans}")
             more = [B * p["runs"] * (heads // p["heads_per_block"]) > p["blocks"]
                     for p in plans.values() if p["rows"]]
             walked += sum(more)
@@ -2034,6 +2079,438 @@ def phase_data_parallel(torch, card, fixed_run, fixed_argv, prog_argv, batch: in
     return k1, k2
 
 
+# ---------------------------------------------- phase 12: tensor parallelism
+
+TP_STEPS = 3
+#: phase 12 (c)'s train steps an epoch, and its search's probe batches and
+#: timed steps a candidate (phase 5: 5, 3 and 3): cut so that the gloo round
+#: trips of the trainer and its resume stay within the phase's time
+TP_PROG_CUTS = {"--fake-data-size": 2, "--search-probe-steps": 1, "--search-time-iters": 1}
+TP_VALIDATE = ["synthetic://", "--num-classes", "1000", "--img-size", "224", "-b", "16",
+               "--workers", "0", "--fake-data-size", "70", "--no-bf16"]
+
+
+def _replicated_digest(state) -> str:
+    """sha256 of the leaves every rank of a model group holds whole: the
+    replicated parameters and EMA leaves, and the buffers."""
+    import hashlib
+    from autoprog_tpu_torch.parallel.tp import param_spec
+    h = hashlib.sha256()
+    trees = [dict(state.model.named_parameters()), dict(state.model.named_buffers()),
+             *state.ema_params]
+    for tree in trees:
+        for name in sorted(tree):
+            if param_spec(name, tree[name].ndim) is None:
+                h.update(name.encode())
+                h.update(tree[name].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tp_logits(torch, dtype, images, fused: bool):
+    """volo_d1 eval logits (parameters from seed 0) on `images`, with K1
+    and K2 on or both off; under the grid, this rank's shards."""
+    from autoprog_tpu_torch.scripts import dp_parity
+    os.environ["AUTOPROG_FUSED_ATTN"] = os.environ["AUTOPROG_FUSED_OUTLOOK"] = \
+        "1" if fused else "0"
+    try:
+        state, _, _ = dp_parity.setup(1, dtype)
+        with torch.no_grad():
+            out = state.model(images, train=False).float()
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["AUTOPROG_FUSED_ATTN"], os.environ["AUTOPROG_FUSED_OUTLOOK"]
+    return out.cpu()
+
+
+def _same_file_state(torch, ctx, ck) -> list:
+    """The names whose gathered tensors differ from the checkpoint's (a
+    collective over the model group under tensor parallelism)."""
+    from autoprog_tpu_torch.parallel import tp
+    bad = [n for n, t in tp.gather_local(ctx.state.params).items()
+           if not torch.equal(t.detach().cpu(), ck["state_dict"][n])]
+    for i, tree in enumerate(ctx.state.ema_params):
+        bad += [f"ema{i}.{n}" for n, t in tp.gather_local(tree).items()
+                if not torch.equal(t.cpu(), ck[f"state_dict_ema_{i}"][n])]
+    return bad
+
+
+def _tp_steps(torch, res, saved) -> None:
+    """Phase 12 (a), (b) and (d) on this rank (see `tp_worker`)."""
+    from autoprog_tpu_torch.ops import attention as A
+    from autoprog_tpu_torch.ops import outlook_fused as O
+    from autoprog_tpu_torch.scripts import dp_parity, tp_parity
+
+    # (a) the f32 volo_d1 step on 32 images, clean and with each planted fault
+    for plant in ("none",) + tp_parity.PLANTS:
+        state, sb, data = dp_parity.setup(32, torch.float32, bias_std=tp_parity.BIAS_STD)
+        with tp_parity.planted(plant):
+            loss, grads, _ = tp_parity.tp_step(state, sb, data)
+        saved[plant] = {"loss": loss, "grads": {k: v.cpu() for k, v in grads.items()}}
+        del state, sb, data, grads
+
+    # (b) the kernels on the local heads: bf16 steps at b=64 with K1 and K2
+    # on, then with both off; the eval logits at f32 and bf16
+    for counts in (A.LAUNCHES, O.LAUNCHES, O.ROUTES):
+        for k in counts:
+            counts[k] = 0
+    A.SHAPE_LAUNCHES.clear()
+    state, sb, data = dp_parity.setup(64, torch.bfloat16, drop_path=0.1)
+    ms = {}
+    for fused in (True, False):
+        if not fused:
+            os.environ["AUTOPROG_FUSED_ATTN"] = os.environ["AUTOPROG_FUSED_OUTLOOK"] = "0"
+            on = (dict(A.LAUNCHES), dict(O.LAUNCHES),
+                  {" ".join(map(str, k)): c for k, c in A.SHAPE_LAUNCHES.items()},
+                  {s: O.PLANS[s] for s in ("fwd", "bwd")}, dict(O.ROUTES))
+        sb.train_step(state, data, 1e-3, r=224)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TP_STEPS):
+            loss = sb.train_step(state, data, 1e-3, r=224)["loss"]
+        torch.cuda.synchronize()
+        ms["on" if fused else "off"] = (time.perf_counter() - t0) / TP_STEPS * 1e3
+        if not math.isfinite(float(loss)):
+            fail("non-finite loss in the bf16 tensor-parallel steps")
+    del os.environ["AUTOPROG_FUSED_ATTN"], os.environ["AUTOPROG_FUSED_OUTLOOK"]
+    res.update(step_ms=ms, k1=on[0], k2=on[1], k1_shapes=on[2], k2_plans=on[3],
+               k2_routes=on[4], k1_after_off=dict(A.LAUNCHES), k2_after_off=dict(O.LAUNCHES))
+    del state, sb, data
+    torch.cuda.empty_cache()
+    images = torch.randn(8, 224, 224, 3, generator=torch.Generator().manual_seed(5)).cuda()
+    saved["logits"] = {"f32_on": _tp_logits(torch, torch.float32, images, True),
+                       "f32_off": _tp_logits(torch, torch.float32, images, False),
+                       "bf16_on": _tp_logits(torch, torch.bfloat16, images, True)}
+
+    # (d) volo_d4 (768 wide, 16 heads): the f32 step at b=8, one bf16 step
+    state, sb, data = dp_parity.setup(8, torch.float32, model="volo_d4",
+                                      bias_std=tp_parity.BIAS_STD)
+    loss, grads, _ = tp_parity.tp_step(state, sb, data)
+    saved["d4"] = {"loss": loss, "grads": {k: v.cpu() for k, v in grads.items()}}
+    del state, sb, data, grads
+    A.SHAPE_LAUNCHES.clear()
+    state, sb, data = dp_parity.setup(8, torch.bfloat16, model="volo_d4")
+    res["d4_bf16_loss"] = dp_parity.dp_step(state, sb, data)[0]
+    res["d4_k1_shapes"] = {" ".join(map(str, k)): c for k, c in A.SHAPE_LAUNCHES.items()}
+
+
+def _tp_trainer(torch, out_dir, rank, res) -> None:
+    """Phase 12 (c) and (e) on this rank (see `tp_worker`)."""
+    from autoprog_tpu_torch import main_prog, validate
+    from autoprog_tpu_torch.ops import attention as A
+    from autoprog_tpu_torch.ops import outlook_fused as O
+    from autoprog_tpu_torch.parallel import mesh, tp
+    from autoprog_tpu_torch.prog import autogrow
+    from autoprog_tpu_torch.train.checkpoint import load_checkpoint_file
+    with open(os.path.join(out_dir, "argv.json")) as f:
+        argv = json.load(f)
+
+    # (c) the progressive trainer through a grow boundary, then a resume at M = 2
+    decisions = []
+    sync = autogrow.sync_decision
+
+    def recorded(r, l):
+        synced = sync(r, l)
+        decisions.append([[r, l], list(synced)])
+        return synced
+    autogrow.sync_decision = recorded
+    run_dir = os.path.join(out_dir, f"out{rank}")
+    os.makedirs(run_dir)
+    for counts in (A.LAUNCHES, O.LAUNCHES, tp.COUNTS):
+        for k in counts:
+            counts[k] = 0
+    t0 = time.time()
+    main_prog.main(argv + ["--model-parallel", "2", "--output", run_dir])
+    torch.cuda.synchronize()
+    ctx = main_prog.LAST_CTX
+    res.update(prog_wall=time.time() - t0, decisions=decisions, final_step=ctx.state.step,
+               history=[[h["r"], h["l"]] for h in ctx.stage_history],
+               digest=_replicated_digest(ctx.state), prog_k1=dict(A.LAUNCHES),
+               prog_k2=dict(O.LAUNCHES), tp_counts=dict(tp.COUNTS),
+               files=sorted(os.path.relpath(os.path.join(d, f), run_dir)
+                            for d, _, fs in os.walk(run_dir) for f in fs))
+    autogrow.sync_decision = sync
+    del ctx, main_prog.LAST_CTX
+    mesh.barrier("files")
+    if rank == 0:                     # the checkpoints are whole: the parent may read them
+        open(os.path.join(out_dir, "trained"), "w").close()
+    run0 = glob.glob(os.path.join(out_dir, "out0", "train", "*"))[0]
+    snap = os.path.join(run0, "checkpoint-2.ckpt")
+    ck = load_checkpoint_file(snap)
+    differ = []
+    restore = _first_epoch_hook(lambda ctx, e: differ.extend(_same_file_state(torch, ctx, ck)))
+    resume_dir = os.path.join(out_dir, f"resume{rank}")
+    os.makedirs(resume_dir)
+    try:
+        main_prog.main(argv + ["--model-parallel", "2", "--resume", snap, "--output",
+                               resume_dir])
+    finally:
+        restore()
+    res.update(resume_differ=differ, resume_step=main_prog.LAST_CTX.state.step)
+    del main_prog.LAST_CTX, ck
+    torch.cuda.empty_cache()
+
+    # (e) the validator over both ranks (data parallel: the grid back to M = 1)
+    mesh.init_grid(1)
+    best = os.path.join(run0, "model_best.ckpt")
+    res["validate"] = validate.main(TP_VALIDATE + ["--checkpoint", best])[0]
+
+
+def tp_worker(out_dir: str, role: str) -> None:
+    """One rank of phase 12, started by `phase_tensor_parallel` with
+    torchrun's environment, gloo and AUTOPROG_TORCH_DEVICE=cuda:0, on a
+    (data 1 x model 2) grid. Two such worlds run side by side: role `steps`
+    takes (a), (b) and (d), role `trainer` (c) and (e). Writes
+    <role><r>.json and rank 0's tensors to `out_dir`."""
+    import torch
+    from autoprog_tpu_torch.parallel import mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not mesh.maybe_init_distributed():
+        fail("the worker found no torchrun environment")
+    mesh.init_grid(2)
+    rank = mesh.process_index()
+    res = {"rank": rank, "grid": [mesh.data_count(), mesh.model_count()],
+           "backend": torch.distributed.get_backend(),
+           "device": str(torch.device("cuda", torch.cuda.current_device()))}
+    if role == "steps":
+        saved = {}
+        _tp_steps(torch, res, saved)
+        if rank == 0:
+            torch.save(saved, os.path.join(out_dir, "steps0.pt"))
+    else:
+        _tp_trainer(torch, out_dir, rank, res)
+    with open(os.path.join(out_dir, f"{role}{rank}.json"), "w") as f:
+        json.dump(res, f, default=float)
+    mesh.destroy()
+
+
+def _ckpt_layout(ck) -> dict:
+    """The keys and shapes of a checkpoint's tensors."""
+    out = {}
+    for key in ("state_dict", "batch_stats", *[f"state_dict_ema_{i}" for i in range(4)]):
+        out.update({f"{key}.{n}": tuple(t.shape) for n, t in ck[key].items()})
+    for i, st in ck["optimizer"]["state"].items():
+        out.update({f"opt.{i}.{k}": tuple(v.shape) for k, v in st.items()})
+    return out
+
+
+def phase_tensor_parallel(torch, card, prog_run, prog_argv):
+    """Phase 12: `--model-parallel 2` (`parallel/tp.py`) as two worlds of two
+    gloo ranks each, side by side on cuda:0 (`tp_worker`: the steps of (a),
+    (b), (d) and the trainer of (c), (e)), against this process on the same
+    card. Returns the K1 and K2 launches of (c) on both ranks."""
+    from autoprog_tpu_torch import main_prog, validate
+    from autoprog_tpu_torch.scripts import dp_parity, tp_parity
+    from autoprog_tpu_torch.train.checkpoint import load_checkpoint_file
+    t_phase = time.time()
+    for var in ("AUTOPROG_FUSED_ATTN", "AUTOPROG_FUSED_OUTLOOK", "AUTOPROG_DIST_BACKEND",
+                "AUTOPROG_TORCH_DEVICE"):
+        os.environ.pop(var, None)
+    out = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    argv = list(prog_argv)
+    argv[argv.index("--workers") + 1] = "3"
+    for flag, n in TP_PROG_CUTS.items():
+        batches = int(argv[argv.index("-b") + 1]) if flag == "--fake-data-size" else 1
+        argv[argv.index(flag) + 1] = str(n * batches)
+    with open(os.path.join(out, "argv.json"), "w") as f:
+        json.dump(argv, f)
+    procs = []
+    for role in ("trainer", "steps"):            # two worlds side by side on the card
+        port = _free_port()
+        for rank in range(2):
+            env = dict(os.environ, **_torchrun_env(rank, 2, port),
+                       AUTOPROG_DIST_BACKEND="gloo", AUTOPROG_TORCH_DEVICE="cuda:0")
+            with open(os.path.join(out, f"{role}{rank}.err"), "w") as err:
+                procs.append((role, rank, subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--tp-worker", out, role],
+                    env=env, stdout=subprocess.DEVNULL, stderr=err)))
+    deadline = time.time() + 600
+
+    def check_exit(p, role, rank):
+        if p.returncode not in (None, 0):
+            err = open(os.path.join(out, f"{role}{rank}.err")).read()
+            fail(f"tensor-parallel {role} rank {rank} failed ({p.returncode}):\n"
+                 f"{err[-4000:]}")
+
+    try:
+        # the one-process references, on the same card while the ranks run
+        ref = {}
+        state, sb, data = dp_parity.setup(32, torch.float32, bias_std=tp_parity.BIAS_STD)
+        loss, grads, _ = dp_parity.dp_step(state, sb, data)
+        ref["none"] = (loss, {k: v.cpu() for k, v in grads.items()})
+        del state, sb, data, grads
+        images = torch.randn(8, 224, 224, 3, generator=torch.Generator().manual_seed(5)).cuda()
+        ref["f32_on"] = _tp_logits(torch, torch.float32, images, True)
+        ref["bf16_on"] = _tp_logits(torch, torch.bfloat16, images, True)
+        state, sb, data = dp_parity.setup(8, torch.float32, model="volo_d4",
+                                          bias_std=tp_parity.BIAS_STD)
+        loss, grads, _ = dp_parity.dp_step(state, sb, data)
+        ref["d4"] = (loss, {k: v.cpu() for k, v in grads.items()})
+        del state, sb, data, grads
+        torch.cuda.empty_cache()
+
+        # (c, e) at M = 1 once the trainer's checkpoints are whole, while its
+        # ranks resume at M = 2
+        while not os.path.exists(os.path.join(out, "trained")):
+            for role, rank, p in procs:
+                p.poll()
+                check_exit(p, role, rank)
+            if time.time() > deadline:
+                fail("the tensor-parallel trainer did not end within 600 s")
+            time.sleep(1)
+        run0 = glob.glob(os.path.join(out, "out0", "train", "*"))[0]
+        snap = os.path.join(run0, "checkpoint-2.ckpt")
+        ck = load_checkpoint_file(snap)
+        differ = []
+        restore = _first_epoch_hook(lambda ctx, e: differ.extend(_same_file_state(torch, ctx, ck)))
+        one = tempfile.mkdtemp(prefix="chip_smoke_tp_resume_")
+        try:
+            main_prog.main(argv + ["--resume", snap, "--output", one])
+        finally:
+            restore()
+        step1 = main_prog.LAST_CTX.state.step
+        del main_prog.LAST_CTX, ck
+        one_v = validate.main(TP_VALIDATE + ["--checkpoint", os.path.join(run0,
+                                                                           "model_best.ckpt")])[0]
+        for role, rank, p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.time(), 1))
+            except subprocess.TimeoutExpired:
+                fail("the tensor-parallel ranks did not end within 600 s")
+            check_exit(p, role, rank)
+    finally:                                     # no rank outlives the phase
+        for _, _, q in procs:
+            if q.poll() is None:
+                q.kill()
+                q.wait()
+    res, tr = [], []
+    for rank in range(2):
+        with open(os.path.join(out, f"steps{rank}.json")) as f:
+            res.append(json.load(f))
+        with open(os.path.join(out, f"trainer{rank}.json")) as f:
+            tr.append(json.load(f))
+    two = torch.load(os.path.join(out, "steps0.pt"))
+    if any(r["backend"] != "gloo" or r["device"] != "cuda:0" or r["grid"] != [1, 2]
+           for r in res + tr):
+        fail("the tensor-parallel runs were not gloo on cuda:0 over a (1 x 2) grid")
+
+    # (a) the f32 step against this process's, clean and with the faults
+    for plant in ("none",) + tp_parity.PLANTS:
+        row = tp_parity.compare(two[plant]["loss"], two[plant]["grads"], *ref["none"],
+                                plant, 0)
+        fam = "; ".join(f"{f} {row['worst'][f][0]} {row['worst'][f][1]:.2e}"
+                        for f in tp_parity.FAMILIES)
+        say(f"phase 12 (a) volo_d1 f32 step, 32 images, M=2 against one process, {plant}: "
+            f"loss {row['loss_one']:.7f} / {row['loss_two']:.7f} (rel {row['loss_rel']:.2e}); "
+            f"gradients over all {row['grad_total']:.2e}; worst per family: {fam}; "
+            f"{'within' if row['within'] else 'BEYOND'} tp_parity's limits (loss "
+            f"{tp_parity.RTOL_LOSS}, all {tp_parity.RTOL_ALL}, leaf {tp_parity.RTOL_LEAF}, stem "
+            f"{tp_parity.RTOL_STEM})")
+        if row["within"] != (plant == "none"):
+            fail(f"phase 12 (a) {plant}: the limits do not tell the clean step from the faults")
+
+    # (b) the kernels on the local heads
+    r0, r1 = res
+    say(f"phase 12 (b) volo_d1 bf16 b=64, drop-path 0.1, {TP_STEPS + 1} steps with K1 and K2 "
+        f"on a rank: K1 {r0['k1']} by (side, tokens, heads, head_dim) {r0['k1_shapes']}, K2 "
+        f"{r0['k2']}, routes {r0['k2_routes']}, last plans {r0['k2_plans']}; with both off "
+        f"after: K1 {r0['k1_after_off']}, K2 {r0['k2_after_off']}")
+    n = TP_STEPS + 1
+    for r in res:
+        plans = r["k2_plans"].values()
+        if r["k1_shapes"] != {"fwd 196 6 32": 14 * n, "bwd 196 6 32": 14 * n} or \
+                r["k2_routes"] != {"fwd_rows": 4 * n, "fwd_general": 0, "bwd_rows": 4 * n,
+                                   "bwd_general": 0} or \
+                any(p["heads"] != 3 or 3 % p["heads_per_block"] for p in plans):
+            fail(f"rank {r['rank']} did not launch K1 on 6 heads and K2's row kernels on 3 "
+                 f"heads once a layer: {r['k1_shapes']} {r['k2_routes']} {r['k2_plans']}")
+        if r["k1_after_off"] != r["k1"] or r["k2_after_off"] != r["k2"]:
+            fail("K1 or K2 ran with AUTOPROG_FUSED_ATTN=0 and AUTOPROG_FUSED_OUTLOOK=0")
+    lg = two["logits"]
+    e_fused = _err(lg["f32_on"], lg["f32_off"])
+    e_f32 = _err(lg["f32_on"], ref["f32_on"])
+    e_one = _err(ref["bf16_on"], ref["f32_on"])
+    e_tp = _err(lg["bf16_on"], ref["bf16_on"])
+    say(f"phase 12 (b) volo_d1 eval logits, 8 images, |logits| max "
+        f"{ref['f32_on'].abs().max().item():.3f}: f32 M=2 with K1 + K2 against M=2 unfused "
+        f"{e_fused:.3e} (tol 1e-3); f32 M=2 against one process {e_f32:.3e} (tol 1e-3); bf16 "
+        f"M=2 against one process, K1 + K2 on both {e_tp:.3e} (tol 3 x {e_one:.3e}, the one-"
+        f"process bf16 logits' distance from the f32 ones)")
+    if not (e_fused <= 1e-3 and e_f32 <= 1e-3):
+        fail("the f32 tensor-parallel logits through K1 / K2 disagree")
+    if not (math.isfinite(e_tp) and e_tp <= 3 * e_one):
+        fail("the bf16 tensor-parallel logits are further from one process's than the "
+             "row-parallel reduce's roundings allow")
+    for r in res:
+        say(f"phase 12 (b) rank {r['rank']}: volo_d1 bf16 step b=64 as 2 gloo ranks sharing "
+            f"one card through the host ({card}), beside (c)'s two ranks: "
+            f"{r['step_ms']['on']:.1f} ms with K1 + K2, {r['step_ms']['off']:.1f} ms without: "
+            f"gloo on one card, not a tensor-parallel speed")
+
+    # (d) volo_d4
+    row = tp_parity.compare(two["d4"]["loss"], two["d4"]["grads"], *ref["d4"], "none", 0)
+    fam = "; ".join(f"{f} {row['worst'][f][1]:.2e}" for f in tp_parity.FAMILIES)
+    say(f"phase 12 (d) volo_d4 224px f32 step, global batch 8 (cut from 1024: one card), M=2 "
+        f"against one process: loss rel {row['loss_rel']:.2e}, gradients over all "
+        f"{row['grad_total']:.2e}, worst per family {fam}; bf16 step loss "
+        f"{r0['d4_bf16_loss']:.4f}, K1 launches by (side, tokens, heads, head_dim) "
+        f"{r0['d4_k1_shapes']}")
+    if not row["within"]:
+        fail("the volo_d4 tensor-parallel step is beyond tp_parity's limits")
+    if not math.isfinite(r0["d4_bf16_loss"]) or \
+            r0["d4_k1_shapes"].get("bwd 196 8 48") != 28:
+        fail("the volo_d4 bf16 step did not run K1 at head_dim 48 in its 28 transformer "
+             "layers")
+
+    # (c) the progressive trainer and its checkpoint, resumed at M = 2 and M = 1
+    r0, r1 = tr
+    log = open(glob.glob(os.path.join(out, "out0", "train", "*", "log.txt"))[0]).read()
+    losses = [float(v) for v in re.findall(r"Train: \d+ \[\s*\d+/\d+\]\s+Loss: (\S+)", log)]
+    say(f"phase 12 (c) main_prog --auto-grow --model-parallel 2, phase 5's arguments but "
+        f"{TP_PROG_CUTS['--fake-data-size']} steps an epoch and the search's probes cut to "
+        f"{TP_PROG_CUTS['--search-probe-steps']} batch and "
+        f"{TP_PROG_CUTS['--search-time-iters']} timed step: "
+        f"{r0['prog_wall']:.1f} s; decisions (proposal, adopted) {r0['decisions']} / "
+        f"{r1['decisions']}; stages {r0['history']}; losses {losses}; K1 {r0['prog_k1']}, K2 "
+        f"{r0['prog_k2']} on rank 0; collectives of parallel/tp.py {r0['tp_counts']}")
+    if len(r0["decisions"]) != 1 or r1["decisions"][0][1] != r0["decisions"][0][0] or \
+            r0["history"] != r1["history"] or r0["history"][-1] != [224, 18]:
+        fail("the ranks did not follow one decision to r=224, l=18")
+    if r0["digest"] != r1["digest"]:
+        fail("the replicated leaves are not bit-equal across the model group")
+    steps = 3 * TP_PROG_CUTS["--fake-data-size"]
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        fail(f"expected {steps} finite losses after the search, got {losses}")
+    if r1["files"] or "last.ckpt" not in {os.path.basename(f) for f in r0["files"]}:
+        fail("checkpoints were not written by rank 0 alone")
+    mine = load_checkpoint_file(os.path.join(run0, "last.ckpt"))
+    theirs = load_checkpoint_file(os.path.join(prog_run, "last.ckpt"))
+    if _ckpt_layout(mine) != _ckpt_layout(theirs) or mine["arch"] != theirs["arch"]:
+        fail("the tensor-parallel checkpoint has not the keys and shapes of phase 5's")
+    del mine, theirs
+    say(f"phase 12 (c) checkpoint-2.ckpt resumed: at M=2 {len(r0['resume_differ'])} / "
+        f"{len(r1['resume_differ'])} tensors differ from the file, final step "
+        f"{r0['resume_step']}; at M=1 {len(differ)} differ, final step {step1}; unbroken run "
+        f"{r0['final_step']}")
+    if r0["resume_differ"] or r1["resume_differ"] or differ or \
+            not r0["resume_step"] == r1["resume_step"] == step1 == r0["final_step"]:
+        fail("a resume of the tensor-parallel checkpoint did not restore its state")
+
+    # (e) the validator over two ranks against one process
+    say(f"phase 12 (e) validate.py on 70 images at -b 16: 2 ranks {r0['validate']['top1']} / "
+        f"{r0['validate']['top5']} (loss {r0['validate']['loss']:.7f}); one process "
+        f"{one_v['top1']} / {one_v['top5']} (loss {one_v['loss']:.7f})")
+    for r in tr:
+        v = r["validate"]
+        if (v["top1"], v["top5"], v["count"]) != (one_v["top1"], one_v["top5"], 70) or \
+                abs(v["loss"] - one_v["loss"]) > 1e-5 * abs(one_v["loss"]):
+            fail("validate.py over two ranks does not equal one process")
+    say(f"phase 12: {time.time() - t_phase:.1f} s")
+    k1 = {s: r0["prog_k1"][s] + r1["prog_k1"][s] for s in ("fwd", "bwd")}
+    k2 = {s: r0["prog_k2"][s] + r1["prog_k2"][s] for s in ("fwd", "bwd")}
+    return k1, k2
+
+
 def _row(name, src, replaces, launches, err, t, key):
     lib = t.get("lib_" + key)
     return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -2067,7 +2544,8 @@ def main():
     deit_k1 = phase_deit(torch, card)
     measured, ran = phase_measure(torch)
     by_shape = dict(SHAPE_LAUNCHES)
-    say(f"phase 7 K1 launches of phases 4 to 7 by (side, tokens, head_dim): {by_shape}")
+    say(f"phase 7 K1 launches of phases 4 to 7 by (side, tokens, heads, head_dim): "
+        f"{by_shape}")
     t = phase_kernel_times(torch, card)
     ts, loop1_counts = phase_k1_shape_times(torch, card)
     tv = phase_mhsa_variant_times(torch, card, t)
@@ -2076,12 +2554,13 @@ def main():
     ck_k1, ck_k2 = phase_checkpoint(torch, card, fixed_run, fixed_argv, prog_run, prog_argv)
     op_k1, op_k2 = phase_options(torch, card)
     dp_k1, dp_k2 = phase_data_parallel(torch, card, fixed_run, fixed_argv, prog_argv)
+    tp_k1, tp_k2 = phase_tensor_parallel(torch, card, prog_run, prog_argv)
     pal = "autoprog_tpu/ops/outlook_pallas.py"
     att = "autoprog_tpu/ops/attention_pallas.py"
     k1 = {side: fixed[side] + prog_k1[side] + deit_k1[side] + ck_k1[side] + op_k1[side] +
-          dp_k1[side] for side in ("fwd", "bwd")}
-    k2 = {side: fixed_k2[side] + prog_k2[side] + ck_k2[side] + op_k2[side] + dp_k2[side]
-          for side in ("fwd", "bwd")}
+          dp_k1[side] + tp_k1[side] for side in ("fwd", "bwd")}
+    k2 = {side: fixed_k2[side] + prog_k2[side] + ck_k2[side] + op_k2[side] + dp_k2[side] +
+          tp_k2[side] for side in ("fwd", "bwd")}
 
     def vrow(key, src, replaces):
         return {"name": key, "route": "cuda", "source": src, "replaces": replaces,
@@ -2093,11 +2572,12 @@ def main():
             r = ts[side, n]
             common = {"route": "cuda", "plain_ms": r["plain"], "bound_ms": r["bound"][0],
                       "bound_by": r["bound"][1], "library_ms": r["lib"]}
-            if by_shape.get((side, n, d), 0) <= 0:
-                fail(f"no trainer or bench launched K1 {side} at n={n}, head_dim={d}")
+            if by_shape.get((side, n, H, d), 0) <= 0:
+                fail(f"no trainer or bench launched K1 {side} at n={n}, heads={H}, "
+                     f"head_dim={d}")
             yield {"name": f"mhsa_qkv_{side}[B={B}, n={n}, C={H * d}, heads={H}]",
                    "source": MHSA_SRC, "replaces": att + line,
-                   "launches": by_shape[side, n, d], "max_abs_err": worst[side],
+                   "launches": by_shape[side, n, H, d], "max_abs_err": worst[side],
                    "ms": r["bf16"], "ms_f32_scores": r["f32"], **common}
             yield {"name": f"loop_img1_{side}[B={B}, n={n}, C={H * d}, heads={H}]",
                    "source": VARIANTS_SRC, "replaces": "scripts/bench_attn_x.py:" +
@@ -2138,5 +2618,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
         dist_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--tp-worker"]:
+        tp_worker(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -806,3 +806,64 @@ def test_remat_on_the_card_matches_the_plain_step(cuda_device, mode):
     assert_close(out[mode][0], out[""][0], torch.bfloat16)
     for n, g in out[""][1].items():
         assert_close(out[mode][1][n], g, torch.bfloat16)
+
+
+# ------------------------------------------ tensor parallelism: local heads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,n,heads,d", [
+    (8, 196, 6, 32),       # volo_d1 at M = 2: 6 of 12 heads
+    (64, 196, 6, 32),      # the same at phase 12's batch
+    (4, 196, 8, 48),       # volo_d4 at M = 2: 8 of 16 heads, head_dim 48
+    (4, 197, 3, 64),       # deit_small at M = 2
+])
+def test_k1_on_a_tensor_parallel_rank_s_heads(cuda_device, dtype, B, n, heads, d):
+    """K1 on the qkv a rank of `--model-parallel 2` holds ([B, n, 3 C / 2]
+    in (3, heads / 2, head_dim) order) against its twin, counted by shape
+    and heads."""
+    g = torch.Generator(cuda_device).manual_seed(2)
+    x = torch.randn(B, n, 3 * heads * d, device=cuda_device, generator=g).to(dtype)
+    dout = torch.randn(B, n, heads * d, device=cuda_device, generator=g).to(dtype)
+    scale = d ** -0.5
+    before = dict(A.SHAPE_LAUNCHES)
+    x.requires_grad_(True)
+    out = A.mhsa_fused_qkv(x, heads, scale)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    for side in ("fwd", "bwd"):
+        key = (side, n, heads, d)
+        assert A.SHAPE_LAUNCHES[key] == before.get(key, 0) + 1
+    assert_close(out, A.mhsa_fused_qkv_reference(x.detach(), heads, scale), dtype)
+    assert_close(x.grad, A.mhsa_fused_qkv_backward_reference(x.detach(), dout, heads, scale),
+                 dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,heads", [
+    (8, 28, 28, 96, 3),      # volo_d1's outlookers at M = 2: 3 of 6 heads
+    (64, 28, 28, 96, 3),     # the same at phase 12's batch
+    (4, 28, 28, 192, 6),     # volo_d4's at M = 2: 6 of 12 heads
+])
+def test_k2_row_kernels_on_a_tensor_parallel_rank_s_heads(cuda_device, dtype, B, H, W, C,
+                                                          heads):
+    """K2 on a rank's v [B, H, W, C / 2] and logits [B, H/2, W/2, heads / 2 x
+    81]: its row kernels plan a head group that divides the local heads, and
+    the result is the twin's."""
+    O, v, logits, gout, scale = _outlook_inputs(cuda_device, dtype, B, H, W, C, heads)
+    before = dict(O.LAUNCHES)
+    v.requires_grad_(True)
+    logits.requires_grad_(True)
+    out = O.outlook_attention_fused(v, logits, heads, scale)
+    out.backward(gout)
+    torch.cuda.synchronize()
+    for side in ("fwd", "bwd"):
+        plan = O.PLANS[side]
+        assert plan["rows"] == 1 and plan["heads"] == heads, plan
+        assert heads % plan["heads_per_block"] == 0, plan
+        assert O.LAUNCHES[side] == before[side] + 1
+    vd, ld = v.detach(), logits.detach()
+    assert_close(out, O.outlook_attention_fused_reference(vd, ld, heads, scale), dtype)
+    dv, dlogits = O.outlook_attention_backward_reference(vd, ld, gout, heads, scale)
+    assert_close(v.grad, dv, dtype)
+    assert_close(logits.grad, dlogits, dtype)

@@ -455,13 +455,6 @@ def test_bad_process_group_settings_raise(monkeypatch, env, error):
     assert not mesh.process_group_active()
 
 
-def test_validate_refuses_more_than_one_rank(monkeypatch):
-    from autoprog_tpu_torch import validate
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="one process"):
-        validate.main(["synthetic://", "--checkpoint", "unused.ckpt"])
-
-
 if __name__ == "__main__":
     if sys.argv[1:2] == ["worker"]:
         worker(sys.argv[2])

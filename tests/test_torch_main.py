@@ -73,7 +73,8 @@ def test_import_leaves_jax_out():
             "assert len(names) > 30 and 'autoprog_tpu_torch.main_prog' in names, names\n"
             "for new in ('bench', 'models.vit', 'scripts.attn_variants',\n"
             "            'scripts.bench_attn', 'scripts.bench_attn_x', 'scripts.timing',\n"
-            "            'validate', 'finetune', 'train.flax_msgpack', 'parallel.mesh'):\n"
+            "            'validate', 'finetune', 'train.flax_msgpack', 'parallel.mesh',\n"
+            "            'parallel.tp', 'scripts.tp_parity'):\n"
             "    assert 'autoprog_tpu_torch.' + new in names, new\n"
             "for name in names:\n"
             "    importlib.import_module(name)\n"
@@ -109,7 +110,6 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--model-parallel", "2"],
     ["--dataset", "tfds/imagenet2012"], ["--dataset", "hfds/imagenet-1k"],
 ])
 def test_main_refuses_flags_that_are_not_ported(flags):
