@@ -17,6 +17,9 @@ pointers and the stream are `c_void_p`, and each entry point returns
 into an exception.
 
 A missing `nvcc` or a failed build raises; nothing falls back.
+
+`build_native_image` builds the host library of the data pipeline
+(`native/fastimage.cpp`) on a host without libjpeg's development files.
 """
 
 from __future__ import annotations
@@ -68,6 +71,12 @@ SIGNATURES = {
     # patches, logits, out, B, n, C, heads, scale, head_minor, dtype, stream
     "outlook_attend": (_I, [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
 }
+
+
+#: the fused JPEG decode + crop + resize that `data/native.py` loads, and the
+#: flags of its Makefile
+NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
+NATIVE_FLAGS = ("-O3", "-march=native", "-fPIC", "-Wall", "-std=c++17", "-shared")
 
 
 def _sources():
@@ -155,3 +164,39 @@ def check(rc: int, what: str) -> None:
         raise ValueError(f"{what}: shape refused by the kernel")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def build_native_image() -> Path:
+    """`native/libfastimage.so`, built where `native/Makefile` cannot build it.
+
+    `data/native.py` loads the library, and where it is missing runs the
+    Makefile, which compiles against the system's libjpeg; without it, the
+    copied pipeline decodes with PIL and says nothing. A host without
+    libjpeg's development files (the H100 machine has none) gets the library
+    here: the Makefile's flags, the libjpeg-turbo headers of `csrc/jpeg/`
+    (ABI 62) and the libjpeg-turbo that Pillow ships (the same ABI), linked
+    by its path with an rpath. An existing library is kept. Raises where
+    g++ or Pillow's libjpeg is missing or the compiler fails."""
+    out = NATIVE_DIR / "libfastimage.so"
+    if out.exists():
+        return out
+    import glob
+    import PIL
+    found = sorted(glob.glob(os.path.join(os.path.dirname(PIL.__file__), os.pardir,
+                                          "pillow.libs", "libjpeg*.so*")))
+    if not found:
+        raise RuntimeError("no libjpeg in Pillow's pillow.libs: the native image library "
+                           "needs libjpeg's development files (native/Makefile)")
+    libjpeg = os.path.realpath(found[0])
+    gxx = shutil.which(os.environ.get("CXX", "g++"))
+    if gxx is None:
+        raise RuntimeError("no C++ compiler: the native image library cannot be built")
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [gxx, *NATIVE_FLAGS, "-I", str(CSRC / "jpeg"), "-o", str(tmp),
+           str(NATIVE_DIR / "fastimage.cpp"), libjpeg, f"-Wl,-rpath,{os.path.dirname(libjpeg)}"]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"building the native image library failed:\n{res.stderr[-4000:]}")
+    os.replace(tmp, out)
+    return out

@@ -39,7 +39,7 @@ import json
 import math
 import os
 import sys
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -72,10 +72,16 @@ def time_step(sb, state, batch, lr: float, *, r: int, keep=None, iters: int = 10
     return ms * 1e-3
 
 
-def make_step(device: torch.device, batch: int) -> Tuple:
+def make_step(device: torch.device, batch: int, *, model: Optional[str] = None,
+              img_size: Optional[int] = None,
+              ema_decays: Tuple[float, ...] = EMA_DECAYS) -> Tuple:
     """The step builder, train state and device-resident synthetic batch of
     the full recipe (token labels, MixToken, AdamW, 4 EMA decays), with the
-    state and target knobs applied."""
+    state and target knobs applied. `model` and `img_size` (default: MODEL and
+    IMG_SIZE) and the EMA decays are the measurement scripts'
+    (`scripts/bench_remat.py`, `scripts/bench_family.py`); they set the
+    blocks' remat mode on the returned model (`state.model.remat`)."""
+    model_name, img = model or MODEL, img_size or IMG_SIZE
     from autoprog_tpu_torch.losses import build_train_loss
     from autoprog_tpu_torch.registry import create_model
     from autoprog_tpu_torch.train.optim import create_optimizer
@@ -84,22 +90,22 @@ def make_step(device: torch.device, batch: int) -> Tuple:
     args = argparse.Namespace(
         opt="adamw", opt_eps=None, opt_betas=None, momentum=0.9, weight_decay=0.05,
         clip_grad=None, clip_mode="norm", token_label=True, token_label_data="synthetic",
-        token_label_size=IMG_SIZE // 16, dense_weight=0.5, cls_weight=1.0,
+        token_label_size=img // 16, dense_weight=0.5, cls_weight=1.0,
         ground_truth=False, smoothing=0.1,
         adam_mu_bf16=_knob("AUTOPROG_BENCH_MU_BF16"))
     ema_dtype = torch.bfloat16 if _knob("AUTOPROG_BENCH_EMA_BF16") else None
     torch.manual_seed(0)
-    model = create_model(MODEL).make(num_classes=NUM_CLASSES, img_size=IMG_SIZE,
-                                     dtype=torch.bfloat16).to(device)
-    state = TrainState.create(model=model, optimizer=create_optimizer(args, model),
-                              ema_decays=EMA_DECAYS, ema_dtype=ema_dtype)
-    sb = StepBuilder(train_loss=build_train_loss(args), ema_decays=EMA_DECAYS,
+    net = create_model(model_name).make(num_classes=NUM_CLASSES, img_size=img,
+                                        dtype=torch.bfloat16).to(device)
+    state = TrainState.create(model=net, optimizer=create_optimizer(args, net),
+                              ema_decays=ema_decays, ema_dtype=ema_dtype)
+    sb = StepBuilder(train_loss=build_train_loss(args), ema_decays=ema_decays,
                      num_classes=NUM_CLASSES, token_label=True, has_token_label_data=True,
                      device=device, seed=0)
     g = torch.Generator(device).manual_seed(0)
-    t = IMG_SIZE // 16
+    t = img // 16
     data = {
-        "image": torch.randn(batch, IMG_SIZE, IMG_SIZE, 3, device=device, generator=g),
+        "image": torch.randn(batch, img, img, 3, device=device, generator=g),
         "label": torch.randint(0, NUM_CLASSES, (batch,), device=device, generator=g),
         "label_scores": torch.rand(batch, 5, t, t, device=device, generator=g),
         "label_inds": torch.randint(0, NUM_CLASSES, (batch, 5, t, t), device=device,

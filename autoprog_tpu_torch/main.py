@@ -5,8 +5,10 @@
 
 The flags are the port's own `config.py` (a copy of the JAX package's, so
 both trainers take the same command line). The device is
-`AUTOPROG_TORCH_DEVICE` (default cuda; see platform.py). The tfds/ and hfds/
-datasets, whose machinery is not ported, raise NotImplementedError.
+`AUTOPROG_TORCH_DEVICE` (default cuda; see platform.py). Every dataset kind
+of the copied `data/dataset.py` reads: `hfds/<name>` a HuggingFace dataset
+saved to disk (the positional data path), `tfds/<name>` only where
+tensorflow_datasets is installed (else its ImportError).
 
 `--resume` (either package's checkpoint; then `--start-epoch` overrides the
 epoch), `--finetune` and `--initial-checkpoint` are each followed by one
@@ -45,21 +47,6 @@ from autoprog_tpu_torch.train.checkpoint import CheckpointSaver, load_checkpoint
 _logger = logging.getLogger("autoprog_tpu_torch")
 
 
-UNPORTED_DATASETS = ("tfds/", "hfds/")
-
-
-def check_dataset(dataset: str) -> None:
-    """Refuse the dataset kinds the port cannot read (no tensorflow_datasets,
-    no local HuggingFace data to test against)."""
-    if dataset.startswith(UNPORTED_DATASETS):
-        raise NotImplementedError(f"--dataset {dataset}: not ported to autoprog_tpu_torch yet")
-
-
-def check_ported(args) -> None:
-    """Refuse flags whose machinery the port does not have yet."""
-    check_dataset(args.dataset)
-
-
 def load_initial_weights(ctx, loader_eval) -> None:
     """--finetune (wins when both are given) or --initial-checkpoint: the
     checkpoint's parameters (its first EMA tree with --model-ema) into the
@@ -72,12 +59,42 @@ def load_initial_weights(ctx, loader_eval) -> None:
     engine.evaluate_all(ctx, loader_eval)
 
 
+def decodes_jpegs(dataset: str, root: str) -> bool:
+    """Whether the loader decodes JPEG files or records itself (an
+    ImageFolder, token-label data, `tfrecord`), where the native decoder
+    applies; generated data, `tfds/` and `hfds/` bring their own images."""
+    return not (dataset in ("synthetic", "procgen") or dataset.startswith(("tfds/", "hfds/"))
+                or root.startswith(("synthetic://", "procgen://")))
+
+
+def check_native_decoder(args) -> None:
+    """With loader workers on JPEG data, make sure the native decoder
+    (`native/libfastimage.so`) loads: build it where it is missing
+    (`_build.build_native_image`; the card's host has no libjpeg development
+    files for `native/Makefile`) and raise where it does not load. The copied
+    pipeline would otherwise decode with PIL without a word, at about two
+    thirds of the native rate (PERF.md, section 3). `AUTOPROG_NO_NATIVE=1`
+    asks for PIL, and then nothing is checked."""
+    if (args.workers <= 0 or os.environ.get("AUTOPROG_NO_NATIVE") == "1"
+            or not decodes_jpegs(args.dataset, args.data_dir)):
+        return
+    from autoprog_tpu_torch._build import build_native_image
+    from autoprog_tpu_torch.data import native
+    path = build_native_image()
+    if not native.available():
+        raise RuntimeError(f"the native JPEG decoder ({path}) did not load; "
+                           "set AUTOPROG_NO_NATIVE=1 to decode with PIL")
+    _logger.info("JPEG decode: native (%s)", path)
+
+
 def start_process(args, model_name: str, suffix: str, splits: int) -> str:
     """Join torchrun's process group where there is one and lay out the
     `--model-parallel` grid (a ValueError where M does not divide the
     world); the output directory and the log file on rank 0 (other ranks log
-    warnings only, to stderr); the JAX entry points' per-rank batch check.
-    Returns the output directory ("" on ranks other than 0)."""
+    warnings only, to stderr); the JAX entry points' per-rank batch check;
+    the native JPEG decoder where the loader's workers need it
+    (`check_native_decoder`). Returns the output directory ("" on ranks
+    other than 0)."""
     mesh.maybe_init_distributed()
     mesh.init_grid(getattr(args, "model_parallel", 1))
     output_dir = make_output_dir(args.output, model_name, suffix=suffix) \
@@ -89,6 +106,7 @@ def start_process(args, model_name: str, suffix: str, splits: int) -> str:
         raise SystemExit(f"per-rank batch size {per_rank} (-b {args.batch_size} over "
                          f"{mesh.data_count()} data ranks) must be divisible by "
                          f"batch splits {splits}")
+    check_native_decoder(args)
     return output_dir
 
 
@@ -105,7 +123,6 @@ def make_saver(args, args_text: str, output_dir: str) -> CheckpointSaver:
 
 def main(argv=None):
     args, args_text = parse_args(argv, prog=False)
-    check_ported(args)
     owns_group = not mesh.process_group_active()
     try:
         return _train(args, args_text)

@@ -31,7 +31,7 @@ from typing import List
 
 from autoprog_tpu_torch import engine
 from autoprog_tpu_torch.config import parse_args, parse_variant_name
-from autoprog_tpu_torch.main import check_ported, load_initial_weights, make_saver, start_process
+from autoprog_tpu_torch.main import load_initial_weights, make_saver, start_process
 from autoprog_tpu_torch.parallel import mesh
 from autoprog_tpu_torch.prog import autogrow
 from autoprog_tpu_torch.prog.depth import elastic_keep_masks
@@ -118,7 +118,6 @@ def auto_grow(ctx, *, search_r, search_h, search_l, current_dp, current_aa,
 
 def main(argv=None):
     args, args_text = parse_args(argv, prog=True)
-    check_ported(args)
     owns_group = not mesh.process_group_active()
     try:
         return _train(args, args_text)

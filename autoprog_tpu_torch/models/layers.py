@@ -83,14 +83,26 @@ def _use_fused_attn(n_lead: int, attn_drop: float, n_tokens: int,
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            gen: Optional[torch.Generator], shape=None) -> torch.Tensor:
+            gen: Optional[torch.Generator], shape=None,
+            shard_dim: Optional[int] = None) -> torch.Tensor:
     """Flax dropout: keep ~ Bernoulli(1 - rate); where(keep, x / keep, 0).
-    `shape` broadcasts one draw (DropPath draws one per sample)."""
+    `shape` broadcasts one draw (DropPath draws one per sample).
+
+    `shard_dim`: `x` is this rank's block, along that axis, of a tensor split
+    contiguously over the model group. The mask is drawn at the full shape,
+    as one process draws it, and this rank's block of it kept: `gen` is the
+    same on every rank of the group, so a mask of the shard's shape would
+    drop the same units on every rank."""
     if rate == 0.0 or not train:
         return x
     keep = 1.0 - rate
-    mask = torch.empty(shape or x.shape, device=x.device).bernoulli_(
-        keep, generator=gen).bool()
+    shape = list(shape or x.shape)
+    if shard_dim is not None:
+        n = shape[shard_dim]
+        shape[shard_dim] = n * mesh.model_count()
+    mask = torch.empty(shape, device=x.device).bernoulli_(keep, generator=gen).bool()
+    if shard_dim is not None:
+        mask = mask.narrow(shard_dim, mesh.model_index() * n, n)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -259,7 +271,7 @@ class Mlp(nn.Module):
         if self.tp:
             x = tp.copy_to_model(x)
         x = F.gelu(self.fc1(x), approximate="tanh")
-        x = dropout(x, self.drop, train, gen)
+        x = dropout(x, self.drop, train, gen, shard_dim=-1 if self.tp else None)
         y = tp.row_parallel(self.fc2, x) if self.tp else self.fc2(x)
         return dropout(y, self.drop, train, gen)
 
@@ -306,7 +318,7 @@ class Attention(nn.Module):
             attn = (e / e.sum(-1, keepdim=True)).to(self.dtype)
         else:
             attn = torch.softmax(attn * scale, dim=-1).to(self.dtype)
-        attn = dropout(attn, self.attn_drop, train, gen)
+        attn = dropout(attn, self.attn_drop, train, gen, shard_dim=-3 if self.tp else None)
         out = torch.einsum("...hnm,...mhd->...nhd", attn.float(), v.float())
         out = out.to(self.dtype).reshape(*lead, N, C)
         return self._proj(out, train, gen)
@@ -398,7 +410,7 @@ class ClassAttention(nn.Module):
         q = self.q(x[:, :1]).reshape(B, 1, h, hd)
         attn = torch.einsum("bqhd,bnhd->bhqn", (q * scale).float(), k.float())
         attn = torch.softmax(attn, dim=-1).to(self.dtype)
-        attn = dropout(attn, self.attn_drop, train, gen)
+        attn = dropout(attn, self.attn_drop, train, gen, shard_dim=1 if self.tp else None)
         cls = torch.einsum("bhqn,bnhd->bqhd", attn.float(), v.float())
         cls = cls.to(self.dtype).reshape(B, 1, h * hd)
         y = tp.row_parallel(self.proj, cls) if self.tp else self.proj(cls)

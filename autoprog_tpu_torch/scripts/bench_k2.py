@@ -38,6 +38,7 @@ import torch
 from autoprog_tpu_torch.ops import outlook_fused as O
 from autoprog_tpu_torch.ops.outlook import outlook_attention
 from autoprog_tpu_torch.platform import default_device
+from autoprog_tpu_torch.scripts import cost
 from autoprog_tpu_torch.scripts.timing import card_name, time_call
 
 #: (batch, H = W, C, heads, dtype): the volo_d1 stages and the volo_d4 width
@@ -46,8 +47,6 @@ SHAPES = [(128, 16, 192, 6, "bf16"), (128, 20, 192, 6, "bf16"), (128, 24, 192, 6
           (128, 28, 192, 6, "bf16"), (128, 28, 384, 12, "bf16"), (128, 28, 192, 6, "f32")]
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 COLUMNS = ("fwd", "bwd", "general fwd", "general bwd", "unfused fwd", "unfused fwd+bwd")
-#: published peaks of one H100 SXM: HBM bytes/s and plain f32 FLOP/s
-HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 
 
 def inputs(B: int, H: int, C: int, heads: int, device: torch.device, seed: int = 0,
@@ -61,18 +60,13 @@ def inputs(B: int, H: int, C: int, heads: int, device: torch.device, seed: int =
 
 
 def bound(B: int, H: int, W: int, C: int, heads: int, item: int = 2):
-    """{side: (least ms, "bytes" or "operations")}: the forward reads v and
-    the logits and writes out; the backward reads v, the logits and g and
-    writes dv and dlogits."""
-    n = (H // 2) * (W // 2)
-    map_b, log_b = B * H * W * C * item, B * n * heads * 81 * item
-    flops = 2 * B * n * 81 * C
-
-    def least(nbytes, ops):
-        by_bytes, by_ops = nbytes / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
-        return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-    return {"fwd": least(2 * map_b + log_b, flops),
-            "bwd": least(3 * map_b + 2 * log_b, 2 * flops)}
+    """{side: (least ms, "bytes" or "operations")} of K2's work
+    (`scripts/cost.py`) at the f32 peak."""
+    out = {}
+    for side in ("fwd", "bwd"):
+        flops, nbytes = cost.k2_work(side, B, H, W, C, heads, item)
+        out[side] = cost.least_ms(nbytes, flops, cost.F32_FLOPS)
+    return out
 
 
 def time_shape(v: torch.Tensor, logits: torch.Tensor, gout: torch.Tensor, heads: int,

@@ -32,6 +32,26 @@ from typing import Dict
 
 import torch
 
+#: the segments, each a row less another (None: the row alone)
+SEGMENTS = {"outlooker segment": ("full step", "no outlookers"),
+            "transformer segment": ("full step", "no transformers"),
+            "rest (stem, post, heads, loss, optimizer, EMA)": ("stem+post+heads+opt only", None)}
+
+
+def keep_masks(model) -> Dict[str, object]:
+    """The step's rows by keep mask: the full step, without the outlookers,
+    without the transformer blocks, and with neither (the stripped step)."""
+    L0, L1 = model.layers[0], model.layers[1]
+    return {"full step": None, "no outlookers": ((False,) * L0, (True,) * L1),
+            "no transformers": ((True,) * L0, (False,) * L1),
+            "stem+post+heads+opt only": ((False,) * L0, (False,) * L1)}
+
+
+def derive(values: Dict[str, float]) -> Dict[str, float]:
+    """The segments of `SEGMENTS` from one value per row (ms, FLOP, ...)."""
+    return {name: values[hi] - (values[lo] if lo else 0.0)
+            for name, (hi, lo) in SEGMENTS.items()}
+
 
 def _cls_only_step(device, batch: int):
     """The step of a cls-only volo_d1: no aux head, no MixToken, soft-target
@@ -70,7 +90,7 @@ def main(argv=None) -> Dict:
     iters, warmup = (20, 3) if on_card else (1, 0)
     sb, state, data = bench.make_step(device, batch)
     lr, r = 1.6e-3, bench.IMG_SIZE
-    L0, L1 = state.model.layers[0], state.model.layers[1]
+    masks = keep_masks(state.model)
     rows: Dict[str, float] = {}
 
     def report(name, fn):
@@ -81,11 +101,9 @@ def main(argv=None) -> Dict:
     def train(sb_, state_, keep):
         return lambda: sb_.train_step(state_, data, lr, r=r, keep=keep)
 
-    report("full step", train(sb, state, None))
-    report("no outlookers", train(sb, state, ((False,) * L0, (True,) * L1)))
-    report("no transformers", train(sb, state, ((True,) * L0, (False,) * L1)))
-    stripped = ((False,) * L0, (False,) * L1)
-    report("stem+post+heads+opt only", train(sb, state, stripped))
+    for name, keep in masks.items():
+        report(name, train(sb, state, keep))
+    stripped = masks["stem+post+heads+opt only"]
     if opts.loss_bisect:
         sb_cls, state_cls = _cls_only_step(device, batch)
         report("cls-only full step", train(sb_cls, state_cls, None))
@@ -108,11 +126,7 @@ def main(argv=None) -> Dict:
     with torch.no_grad():
         report("model fwd only", lambda: state.model(data["image"], train=False))
 
-    full = rows["full step"]
-    derived = {"outlooker segment": full - rows["no outlookers"],
-               "transformer segment": full - rows["no transformers"],
-               "rest (stem, post, heads, loss, optimizer, EMA)":
-                   rows["stem+post+heads+opt only"]}
+    derived = derive(rows)
     print("derived:", file=sys.stderr)
     for name, ms in derived.items():
         print(f"  {name}: {ms:.3f} ms", file=sys.stderr)

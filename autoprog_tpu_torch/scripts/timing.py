@@ -5,7 +5,7 @@ would measure the enqueue. On the CPU (tests) it is `time.perf_counter`."""
 from __future__ import annotations
 
 import time
-from typing import Callable
+from typing import Callable, Dict
 
 import torch
 
@@ -30,14 +30,45 @@ def time_call(fn: Callable[[], object], iters: int, warmup: int = 3,
     return start.elapsed_time(end) / iters
 
 
+def _smi(index: int):
+    import subprocess
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "-i", str(index)],
+                          capture_output=True, text=True, timeout=60)
+
+
 def card_name(device: torch.device) -> str:
     """What the times were taken on: `nvidia-smi`'s name and power limit for
     a CUDA device, "cpu" otherwise."""
     if device.type != "cuda":
         return "cpu"
-    import subprocess
     idx = device.index if device.index is not None else torch.cuda.current_device()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader", "-i", str(idx)],
-                         capture_output=True, text=True, timeout=60)
+    smi = _smi(idx)
     return smi.stdout.strip() if smi.returncode == 0 else torch.cuda.get_device_name(idx)
+
+
+def smi_card(index: int = 0) -> str:
+    """`nvidia-smi`'s name and power limit of card `index`, read without
+    initialising CUDA (for a host-side measurement); raises where there is
+    no card to read."""
+    try:
+        smi = _smi(index)
+    except FileNotFoundError as e:
+        raise RuntimeError("nvidia-smi is missing: no card on this host") from e
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip()
+
+
+def launch_counts() -> Dict[str, Dict[str, int]]:
+    """K1's and K2's launch counters as they stand, forward and backward
+    (`ops/attention.LAUNCHES`, `ops/outlook_fused.LAUNCHES`)."""
+    from autoprog_tpu_torch.ops import attention, outlook_fused
+    return {"K1": {s: attention.LAUNCHES[s] for s in ("fwd", "bwd")},
+            "K2": {s: outlook_fused.LAUNCHES[s] for s in ("fwd", "bwd")}}
+
+
+def launches_since(start: Dict[str, Dict[str, int]]) -> Dict[str, Dict[str, int]]:
+    """K1's and K2's launches since `start = launch_counts()`."""
+    now = launch_counts()
+    return {k: {s: now[k][s] - start[k][s] for s in now[k]} for k in now}

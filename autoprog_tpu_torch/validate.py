@@ -43,7 +43,6 @@ from autoprog_tpu_torch.config import resolve_data_config
 from autoprog_tpu_torch.data.dataset import create_dataset
 from autoprog_tpu_torch.data.loader import create_loader, pad_eval_batch
 from autoprog_tpu_torch.engine import to_device
-from autoprog_tpu_torch.main import check_dataset
 from autoprog_tpu_torch.parallel import mesh
 from autoprog_tpu_torch.platform import default_device
 from autoprog_tpu_torch.registry import create_model, list_models
@@ -99,7 +98,6 @@ def _params_key(ckpt, use_ema: bool, ema_idx: Optional[int]) -> str:
 
 
 def validate(args) -> dict:
-    check_dataset(args.dataset)
     device = default_device()
     model_name = args.model
     ckpt = None

@@ -161,9 +161,10 @@ back to the CPU or to a plain twin):
      products once more than the one-device layer, an error of the size
      bf16 already makes); the per-step times, which are gloo through the
      host on one card, not a tensor-parallel speed; (c) `main_prog
-     --auto-grow --model-parallel 2` with phase 5's arguments, cut to 2
-     steps an epoch and 1 probe batch and 1 timed step a candidate
-     (`TP_PROG_CUTS`; the widths, batch, epochs and stages are phase 5's):
+     --auto-grow --model-parallel 2` with phase 5's arguments, cut to a
+     global batch of 16, 2 steps an epoch and 1 probe batch and 1 timed
+     step a candidate (`TP_PROG_CUTS`; the widths, epochs and stages are
+     phase 5's):
      one decision,
      the replicated leaves bit-equal across the ranks, checkpoints from rank
      0 alone with the keys and shapes of phase 5's, and its checkpoint-2.ckpt
@@ -173,14 +174,24 @@ back to the CPU or to a plain twin):
      within tp_parity's limits and one bf16 step that runs K1 at head_dim
      48 in its 28 transformer layers; (e) `validate.py` over the two ranks
      on 70 images at -b 16 against one process: top-1 and top-5 equal, the
-     loss within 1e-5.
+     loss within 1e-5;
+ 13. the measurement scripts (`autoprog_tpu_torch/scripts/`), each run as a
+     user runs it, in a process of its own, its last stdout line parsed:
+     `bench_roofline 128` (every row and segment counts FLOP and bytes, none
+     sits above 100 % of its floor, the counted full step launched K1 and
+     K2), `bench_eval 128`, `bench_remat --iters 3`, `bench_family --iters 3`
+     (volo_d4 b=32 and volo_d5 b=8 under remat), `bench_outlook 128
+     --blockdiag --fused` (each fused row launched its kernel and K2's
+     backward) and `bench_loader --images 512 --repeats 1` on the host's
+     cores (at most 8) in its three modes, with the native decoder loaded;
+     any nonzero exit fails the run.
 
 The line before the last is the kernel report (JSON): for each kernel its
-launches on its path (K1 and K2: phases 4 to 6 and 9 to 12, both ranks of
+launches on its path (K1 and K2: phases 4 to 6 and 9 to 13, both ranks of
 phase 11 (b) and of phase 12 (c) counted; K1's rows per shape: phases
 4 to 7 at that shape; `loop_img1`: its timing run of phase 8; K3, K4: the
-variants run of phase 8; K5 and the MHSA variants: the measurement scripts
-of phase 7), its
+variants run of phase 8 and phase 13's outlook rows; K5 and the MHSA
+variants: the measurement scripts of phase 7), its
 worst error against the twin, its time, the twin's,
 the least time the card could take (`bound_ms`, from the bytes it must move
 at 3.35 TB/s and its operations at the peak of their type), the library
@@ -194,6 +205,7 @@ import json
 import math
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -201,9 +213,6 @@ import tempfile
 import time
 
 TOL_ULPS = {"bfloat16": 2.0 ** -6, "float32": 2.0 ** -20}
-# published peaks of one H100 SXM: HBM bytes/s, dense bf16 tensor-core and
-# plain f32 FLOP/s
-HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 MHSA_SRC = "autoprog_tpu_torch/csrc/mhsa_qkv.cu"
 OUTLOOK_SRC = "autoprog_tpu_torch/csrc/outlook.cu"
 VARIANTS_SRC = "autoprog_tpu_torch/csrc/mhsa_variants.cu"
@@ -978,13 +987,12 @@ def phase_kernel_times(torch, card):
         "lib_bwd": _time_cuda(torch, lambda: torch.autograd.grad(
             lib_out, leaf, dout, retain_graph=True), 50),
     }
-    # least time: 2 n^2 d FLOP per product and head (2 products forward, 5
-    # backward with the recomputed scores) at the bf16 peak, against qkv and
-    # out (forward) or qkv, dout and dqkv (backward) moved once
-    C, item = H * d, 2
-    prod = 2 * n * n * d * H * B
-    t["bound_fwd"], t["by_fwd"] = _bound(4 * B * n * C * item, 2 * prod, BF16_FLOPS)
-    t["bound_bwd"], t["by_bwd"] = _bound(7 * B * n * C * item, 5 * prod, BF16_FLOPS)
+    # least time: K1's work (`scripts/cost.py`) at the bf16 peak
+    from autoprog_tpu_torch.scripts import cost
+    C = H * d
+    for side in ("fwd", "bwd"):
+        flops, nbytes = cost.k1_work(side, B, n, H, d)
+        t["bound_" + side], t["by_" + side] = _bound(nbytes, flops, cost.BF16_FLOPS)
     say(f"phase 8 K1 [B={B}, n={n}, C={C}, heads={H}] bf16 on {card}: "
         f"fwd {t['fwd']:.4f} ms (plain {t['plain_fwd']:.4f}, SDPA {t['lib_fwd']:.4f}, bound "
         f"{t['bound_fwd']:.4f} by {t['by_fwd']}), bwd {t['bwd']:.4f} ms (plain "
@@ -1003,7 +1011,7 @@ def phase_k1_shape_times(torch, card):
     import torch.nn.functional as F
     from autoprog_tpu_torch.ops import attention as A
     from autoprog_tpu_torch.scripts import bench_attn_x as X
-    from autoprog_tpu_torch.scripts import bench_k1
+    from autoprog_tpu_torch.scripts import bench_k1, cost
     rows = {}
     X.LAUNCHES.clear()
     for B, n, H, d in bench_k1.SHAPES:
@@ -1024,9 +1032,10 @@ def phase_k1_shape_times(torch, card):
             torch, lambda: A.mhsa_fused_qkv_reference(qkv, H, scale), 5, 1)
         ms["plain bwd"] = _time_cuda(
             torch, lambda: A.mhsa_fused_qkv_backward_reference(qkv, dout, H, scale), 5, 1)
-        prod = 2 * n * n * d * H * B
-        bound = {"fwd": _bound(4 * B * n * C * 2, 2 * prod, BF16_FLOPS),
-                 "bwd": _bound(7 * B * n * C * 2, 5 * prod, BF16_FLOPS)}
+        bound = {}
+        for side in ("fwd", "bwd"):
+            flops, nbytes = cost.k1_work(side, B, n, H, d)
+            bound[side] = _bound(nbytes, flops, cost.BF16_FLOPS)
         for side in ("fwd", "bwd"):
             t = {"bf16": ms[side], "f32": ms[side + " f32"], "loop1": ms["loop_img1 " + side],
                  "lib": ms["lib " + side], "plain": ms["plain " + side]}
@@ -1105,9 +1114,9 @@ def phase_mhsa_variant_times(torch, card, t_k1):
 
 def _bound(nbytes: float, flops: float, peak: float):
     """(least ms, what sets it): bytes over the HBM rate against operations
-    over the peak of their type."""
-    by_bytes, by_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    over the peak of their type (`scripts/cost.py`)."""
+    from autoprog_tpu_torch.scripts.cost import least_ms
+    return least_ms(nbytes, flops, peak)
 
 
 def phase_outlook_times(torch, card):
@@ -1117,6 +1126,7 @@ def phase_outlook_times(torch, card):
     of the report are read over this phase's variants run."""
     from autoprog_tpu_torch.ops import outlook_fused as O
     from autoprog_tpu_torch.ops.outlook import outlook_attention
+    from autoprog_tpu_torch.scripts import cost
     B, H, C, heads = 128, 28, 192, 6
     d, n = C // heads, (H // 2) ** 2
     scale = d ** -0.5
@@ -1194,7 +1204,7 @@ def phase_outlook_times(torch, card):
     attend_flops = 2 * B * n * 81 * C
     for key in ("attend_hm", "attend"):
         t["bound_" + key], t["by_" + key] = _bound(2 * patch_b + log_b, attend_flops,
-                                                   F32_FLOPS)
+                                                   cost.F32_FLOPS)
     say(f"phase 8 K2 alone on {card}: fwd {t['fwd']:.4f} ms (general {t['general_fwd']:.4f}, "
         f"plain {t['plain_fwd']:.4f}, bound {t['bound_fwd']:.4f} by {t['by_fwd']}), bwd "
         f"{t['bwd']:.4f} ms (general {t['general_bwd']:.4f}, plain "
@@ -2082,10 +2092,12 @@ def phase_data_parallel(torch, card, fixed_run, fixed_argv, prog_argv, batch: in
 # ---------------------------------------------- phase 12: tensor parallelism
 
 TP_STEPS = 3
-#: phase 12 (c)'s train steps an epoch, and its search's probe batches and
-#: timed steps a candidate (phase 5: 5, 3 and 3): cut so that the gloo round
-#: trips of the trainer and its resume stay within the phase's time
-TP_PROG_CUTS = {"--fake-data-size": 2, "--search-probe-steps": 1, "--search-time-iters": 1}
+#: phase 12 (c)'s global batch, train steps an epoch, and its search's probe
+#: batches and timed steps a candidate (phase 5: 64, 5, 3 and 3): cut so that
+#: the gloo round trips of the trainer and its resume, whose activations are
+#: all-reduced through the host, stay within the phase's time
+TP_PROG_CUTS = {"-b": 16, "--fake-data-size": 2, "--search-probe-steps": 1,
+                "--search-time-iters": 1}
 TP_VALIDATE = ["synthetic://", "--num-classes", "1000", "--img-size", "224", "-b", "16",
                "--workers", "0", "--fake-data-size", "70", "--no-bf16"]
 
@@ -2467,6 +2479,7 @@ def phase_tensor_parallel(torch, card, prog_run, prog_argv):
     log = open(glob.glob(os.path.join(out, "out0", "train", "*", "log.txt"))[0]).read()
     losses = [float(v) for v in re.findall(r"Train: \d+ \[\s*\d+/\d+\]\s+Loss: (\S+)", log)]
     say(f"phase 12 (c) main_prog --auto-grow --model-parallel 2, phase 5's arguments but "
+        f"batch {TP_PROG_CUTS['-b']}, "
         f"{TP_PROG_CUTS['--fake-data-size']} steps an epoch and the search's probes cut to "
         f"{TP_PROG_CUTS['--search-probe-steps']} batch and "
         f"{TP_PROG_CUTS['--search-time-iters']} timed step: "
@@ -2509,6 +2522,111 @@ def phase_tensor_parallel(torch, card, prog_run, prog_argv):
     k1 = {s: r0["prog_k1"][s] + r1["prog_k1"][s] for s in ("fwd", "bwd")}
     k2 = {s: r0["prog_k2"][s] + r1["prog_k2"][s] for s in ("fwd", "bwd")}
     return k1, k2
+
+
+def _run_script(name: str, args, timeout: int):
+    """`python -m autoprog_tpu_torch.scripts.<name> <args>` in a process of
+    its own (this one holds a CUDA context, and the loader spawns workers),
+    with the environment of a user's shell: none of the port's switches
+    that earlier phases set, no torchrun variables. Its table (stderr) is
+    echoed; its last stdout line is parsed. Fails on a nonzero exit."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("AUTOPROG_") and k not in
+           ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    cmd = [sys.executable, "-m", f"autoprog_tpu_torch.scripts.{name}", *map(str, args)]
+    t0 = time.time()
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, env=env)
+    except subprocess.TimeoutExpired:
+        fail(f"{' '.join(cmd[2:])} ran past {timeout} s")
+    for line in res.stderr.strip().splitlines()[-20:]:
+        say(f"  | {line}")
+    if res.returncode != 0:
+        fail(f"{' '.join(cmd[2:])} exited {res.returncode}:\n{res.stderr[-3000:]}")
+    lines = res.stdout.strip().splitlines()
+    if not lines:
+        fail(f"{' '.join(cmd[2:])} printed no JSON line")
+    say(f"phase 13 python -m autoprog_tpu_torch.scripts.{name} {' '.join(map(str, args))}: "
+        f"{time.time() - t0:.1f} s")
+    return json.loads(lines[-1])
+
+
+def _launched(res, what: str, sides=("fwd", "bwd")):
+    """The K1 / K2 launches a script's JSON line reports; fails where one of
+    them is 0 on `sides`."""
+    got = res["launches"]
+    if not all(got[k][s] > 0 for k in ("K1", "K2") for s in sides):
+        fail(f"{what}: a step launched no kernel: {got}")
+    return got
+
+
+def phase_scripts(card):
+    """Phase 13: the measurement scripts of the JAX package's `scripts/` as
+    the port has them, each run on the card as a user runs it, its JSON line
+    checked: the roofline at b=128 (every row and segment with FLOP and
+    bytes, no floor share above 1, K1 and K2 launched and counted), the eval
+    forwards at b=128, remat off / dots / full and volo_d4 / volo_d5 with 3
+    timed steps, the outlook formulations at b=128 with the blockdiag and
+    the fused rows (each fused row named after a kernel that launched), and
+    the host loader at 512 images on the host's cores (at most 8): the
+    ImageFolder mode, the record supply and records -> uint8 batches, with
+    the native decoder loaded. Returns the launches of K1 and K2 by script,
+    which are not the main path's (the report keeps them apart from its
+    `launches`), and the K3 / K4 launches of the outlook rows."""
+    launches = {}
+    roof = _run_script("bench_roofline", [128], 300)
+    for table in ("rows", "segments"):
+        for name, r in roof[table].items():
+            if not (r["flops"] > 0 and r["bytes"] > 0):
+                fail(f"bench_roofline: {name} counted no FLOP or no bytes: {r}")
+            if not 0 < r["floor_share"] <= 1:
+                fail(f"bench_roofline: {name} at {r['floor_share']:.3f} of its floor")
+    kernels = roof["rows"]["full step"]["kernels"]
+    if not all(kernels.get(k, {}).get("launches", 0) > 0
+               for k in ("K1 fwd", "K1 bwd", "K2 fwd", "K2 bwd")):
+        fail(f"bench_roofline: the counted full step launched no K1 or K2: {kernels}")
+    launches["bench_roofline"] = _launched(roof, "bench_roofline")
+    full = roof["rows"]["full step"]
+    say(f"phase 13 roofline b=128 on {card}: full step {full['ms']:.2f} ms, "
+        f"{full['flops'] / 1e12:.3f} TFLOP ({'inside' if 4.2e12 <= full['flops'] <= 6.3e12 else 'OUTSIDE'}"
+        f" the VOLO paper's 4.2-6.3), {full['bytes'] / 1e9:.2f} GB, MFU "
+        f"{100 * roof['mfu']:.2f}%, {roof['img_per_s']:.1f} img/s")
+    ev = _run_script("bench_eval", [128], 200)
+    if len(ev["rows"]) != 5 or not all(v > 0 for v in ev["rows"].values()):
+        fail(f"bench_eval: {ev['rows']}")
+    launches["bench_eval"] = _launched(ev, "bench_eval", sides=("fwd",))
+    rem = _run_script("bench_remat", ["--iters", 3], 300)
+    if [r["mode"] for r in rem["rows"]] != ["off", "dots", "full"] or not all(
+            r["ms"] > 0 and r["peak_gib"] > 0 for r in rem["rows"]):
+        fail(f"bench_remat: {rem['rows']}")
+    launches["bench_remat"] = _launched(rem, "bench_remat")
+    fam = _run_script("bench_family", ["--iters", 3], 400)
+    if [r["model"] for r in fam["rows"]] != ["volo_d4", "volo_d5"] or not all(
+            r["ms"] > 0 and r["peak_gib"] > 0 for r in fam["rows"]):
+        fail(f"bench_family: {fam['rows']}")
+    launches["bench_family"] = _launched(fam, "bench_family")
+    out = _run_script("bench_outlook", [128, "--blockdiag", "--fused"], 300)
+    rows = {r["name"]: r for r in out["rows"]}
+    need = {"K2 fused": ("fwd", "bwd"), "K3 hybrid": ("attend_hm", "bwd"),
+            "K4 hybrid2": ("attend", "bwd")}
+    for name, keys in need.items():
+        if name not in rows or not all(rows[name]["launches"][k] > 0 for k in keys):
+            fail(f"bench_outlook: the {name} row did not launch its kernels: {sorted(rows)}")
+    attend = {k: sum(r["launches"][k] for r in out["rows"]) for k in ("attend_hm", "attend")}
+    launches["bench_outlook"] = {"K1": {"fwd": 0, "bwd": 0}, "K2": {
+        s: sum(r["launches"][s] for r in out["rows"]) for s in ("fwd", "bwd")}}
+    workers = min(8, os.cpu_count() or 1)
+    loader, root = {}, tempfile.mkdtemp(prefix="chip_smoke_loader_")
+    for mode in ([], ["--tfrecord"], ["--tfrecord-e2e"]):    # the last two share the records
+        res = _run_script("bench_loader", ["--images", 512, "--repeats", 1, "--workers",
+                                           workers, "--root", root, *mode], 400)
+        loader[mode[0] if mode else "folder"] = res["rows"]
+    shutil.rmtree(root, ignore_errors=True)
+    natives = [r for m in ("folder", "--tfrecord-e2e") for r in loader[m]
+               if r["decoder"] == "native C++"]
+    if len(natives) != 3 or not all(r["img_per_s"] > 0 for r in natives):
+        fail(f"bench_loader: a native leg is missing: {loader}")
+    say(f"phase 13 launches: {launches}, K3 / K4 {attend}")
+    return launches, attend
 
 
 def _row(name, src, replaces, launches, err, t, key):
@@ -2555,12 +2673,18 @@ def main():
     op_k1, op_k2 = phase_options(torch, card)
     dp_k1, dp_k2 = phase_data_parallel(torch, card, fixed_run, fixed_argv, prog_argv)
     tp_k1, tp_k2 = phase_tensor_parallel(torch, card, prog_run, prog_argv)
+    sc, sc_attend = phase_scripts(card)
     pal = "autoprog_tpu/ops/outlook_pallas.py"
     att = "autoprog_tpu/ops/attention_pallas.py"
     k1 = {side: fixed[side] + prog_k1[side] + deit_k1[side] + ck_k1[side] + op_k1[side] +
           dp_k1[side] + tp_k1[side] for side in ("fwd", "bwd")}
     k2 = {side: fixed_k2[side] + prog_k2[side] + ck_k2[side] + op_k2[side] + dp_k2[side] +
           tp_k2[side] for side in ("fwd", "bwd")}
+
+    def scripts(kernel, side):
+        """Phase 13's launches of a K1 / K2 side by script: the measurement
+        scripts' own processes, kept out of the main path's `launches`."""
+        return {"script_launches": {name: got[kernel][side] for name, got in sc.items()}}
 
     def vrow(key, src, replaces):
         return {"name": key, "route": "cuda", "source": src, "replaces": replaces,
@@ -2586,20 +2710,23 @@ def main():
                    "max_abs_err": worst_v["loop_img1_" + side], "ms": r["loop1"], **common}
 
     report = {"kernels": [
-        _row("mhsa_qkv_fwd", MHSA_SRC, att + ":206", k1["fwd"], worst["fwd"], t, "fwd"),
-        _row("mhsa_qkv_bwd", MHSA_SRC, att + ":228", k1["bwd"], worst["bwd"], t, "bwd"),
+        {**_row("mhsa_qkv_fwd", MHSA_SRC, att + ":206", k1["fwd"], worst["fwd"], t, "fwd"),
+         **scripts("K1", "fwd")},
+        {**_row("mhsa_qkv_bwd", MHSA_SRC, att + ":228", k1["bwd"], worst["bwd"], t, "bwd"),
+         **scripts("K1", "bwd")},
         {**_row("outlook_fused_fwd", OUTLOOK_SRC, pal + ":80", k2["fwd"], worst_o["fwd"],
                 to, "fwd"),
          "ms_general": to["general_fwd"], "ms_f32": to["f32_fwd"],
-         "ms_general_f32": to["f32_general_fwd"]},
+         "ms_general_f32": to["f32_general_fwd"], **scripts("K2", "fwd")},
         {**_row("outlook_fused_bwd", OUTLOOK_SRC, pal + ":203", k2["bwd"], worst_o["bwd"],
                 to, "bwd"),
          "ms_general": to["general_bwd"], "ms_f32": to["f32_bwd"],
-         "ms_general_f32": to["f32_general_bwd"]},
-        _row("outlook_attend_hm", OUTLOOK_SRC, pal + ":237", variants["attend_hm"],
-             worst_o["attend_hm"], to, "attend_hm"),
-        _row("outlook_attend", OUTLOOK_SRC, pal + ":326", variants["attend"],
-             worst_o["attend"], to, "attend"),
+         "ms_general_f32": to["f32_general_bwd"], **scripts("K2", "bwd")},
+        _row("outlook_attend_hm", OUTLOOK_SRC, pal + ":237",
+             variants["attend_hm"] + sc_attend["attend_hm"], worst_o["attend_hm"], to,
+             "attend_hm"),
+        _row("outlook_attend", OUTLOOK_SRC, pal + ":326",
+             variants["attend"] + sc_attend["attend"], worst_o["attend"], to, "attend"),
         vrow("mhsa_fwd", MHSA_SRC, att + ":47"),
         vrow("mhsa_bwd", MHSA_SRC, att + ":67"),
         vrow("twophase", VARIANTS_SRC, "scripts/attn_variants.py:64"),

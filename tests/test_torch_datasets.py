@@ -1,9 +1,11 @@
 """The datasets the port's trainers now accept, against the JAX package's
-loader on the same inputs: `procgen://` and `--dataset tfrecord` batches are
-equal array for array (the port's data pipeline is a copy), train and eval;
-the port's trainer takes an epoch on procgen and its validator evaluates
-it. The TFRecord shards are written here with a minimal tf.Example
-encoder and read back with CRC checks on.
+loader on the same inputs: `procgen://`, `--dataset tfrecord` and `--dataset
+hfds/...` batches are equal array for array (the port's data pipeline is a
+copy), train and eval; the port's trainer takes an epoch on procgen and its
+validator evaluates it. The TFRecord shards are written here with a minimal
+tf.Example encoder and read back with CRC checks on; the HuggingFace dataset
+is written to disk with `datasets` (`save_to_disk`), as
+tests/test_iterable_data.py writes its own.
 """
 
 import glob
@@ -48,6 +50,28 @@ def tfrecord_root(tmp_path_factory):
     return root
 
 
+def write_hfds(root: str, n: int = 16, num_classes: int = NC, seed: int = 0) -> str:
+    """A HuggingFace DatasetDict (train, validation) of `n` random RGB images
+    of odd sizes each, labels i % num_classes, saved to disk at `root`."""
+    hfd = pytest.importorskip("datasets")
+    from PIL import Image
+    rs = np.random.default_rng(seed)
+    splits = {}
+    for split in ("train", "validation"):
+        rows = {"image": [Image.fromarray(rs.integers(0, 256, (36 + i % 5, 44, 3), np.uint8))
+                          for i in range(n)],
+                "label": [i % num_classes for i in range(n)]}
+        d = hfd.Dataset.from_dict(rows)
+        splits[split] = d.cast_column("label", hfd.ClassLabel(num_classes=num_classes))
+    hfd.DatasetDict(splits).save_to_disk(root)
+    return root
+
+
+@pytest.fixture(scope="module")
+def hfds_root(tmp_path_factory):
+    return write_hfds(str(tmp_path_factory.mktemp("hfds") / "local"))
+
+
 def _batches(make_ds, make_loader, root, name, training):
     ds = make_ds(name, root, split="train" if training else "validation",
                  is_training=training, num_classes=NC, fake_size=16, image_size=IMG, seed=3)
@@ -60,10 +84,12 @@ def _batches(make_ds, make_loader, root, name, training):
         loader.close()
 
 
-@pytest.mark.parametrize("source", ["procgen", "tfrecord"])
+@pytest.mark.parametrize("source", ["procgen", "tfrecord", "hfds"])
 @pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
-def test_batches_equal_the_jax_loaders(source, training, tfrecord_root):
-    root, name = ("procgen://", "") if source == "procgen" else (tfrecord_root, "tfrecord")
+def test_batches_equal_the_jax_loaders(source, training, tfrecord_root, request):
+    root, name = {"procgen": lambda: ("procgen://", ""),
+                  "tfrecord": lambda: (tfrecord_root, "tfrecord"),
+                  "hfds": lambda: (request.getfixturevalue("hfds_root"), "hfds/local")}[source]()
     want = _batches(jax_create_dataset, jax_create_loader, root, name, training)
     got = _batches(create_dataset, create_loader, root, name, training)
     assert len(got) == len(want) == 2

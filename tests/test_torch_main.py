@@ -74,7 +74,9 @@ def test_import_leaves_jax_out():
             "for new in ('bench', 'models.vit', 'scripts.attn_variants',\n"
             "            'scripts.bench_attn', 'scripts.bench_attn_x', 'scripts.timing',\n"
             "            'validate', 'finetune', 'train.flax_msgpack', 'parallel.mesh',\n"
-            "            'parallel.tp', 'scripts.tp_parity'):\n"
+            "            'parallel.tp', 'scripts.tp_parity', 'scripts.cost',\n"
+            "            'scripts.bench_roofline', 'scripts.bench_loader', 'scripts.bench_eval',\n"
+            "            'scripts.bench_remat', 'scripts.bench_family', 'scripts.bench_outlook'):\n"
             "    assert 'autoprog_tpu_torch.' + new in names, new\n"
             "for name in names:\n"
             "    importlib.import_module(name)\n"
@@ -109,18 +111,70 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert default_device() == torch.device("cpu")
 
 
-@pytest.mark.parametrize("flags", [
-    ["--dataset", "tfds/imagenet2012"], ["--dataset", "hfds/imagenet-1k"],
-])
-def test_main_refuses_flags_that_are_not_ported(flags):
-    from autoprog_tpu_torch.main import main
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(["synthetic://", "--model", "volo_h2_l4"] + flags)
-
-
 TINY = ["--model", "deit_h2_l2", "--num-classes", "8", "--img-size", "32", "-b", "8",
         "--warmup-epochs", "0", "--cooldown-epochs", "0", "--workers", "0",
         "--fake-data-size", "16", "--no-bf16"]
+
+
+@pytest.mark.parametrize("kind", ["tfds", "hfds"])
+def test_main_reads_the_tfds_and_hfds_datasets(kind, tmp_path, monkeypatch):
+    """`--dataset tfds/...` reaches the copied data pipeline's gate, an
+    ImportError that names tensorflow_datasets (installed on neither
+    machine); `--dataset hfds/...` trains an epoch and evaluates on a
+    HuggingFace dataset saved to disk."""
+    from autoprog_tpu_torch.main import main
+    monkeypatch.setenv("AUTOPROG_TORCH_DEVICE", "cpu")
+    argv = TINY + ["--epochs", "1", "--output", str(tmp_path / "out")]
+    if kind == "tfds":
+        try:
+            import tensorflow_datasets  # noqa: F401
+            pytest.skip("tensorflow_datasets is installed: the gate does not apply")
+        except ImportError:
+            pass
+        with pytest.raises(ImportError, match="tensorflow_datasets"):
+            main(["", "--dataset", "tfds/imagenet2012"] + argv)
+        return
+    from test_torch_datasets import write_hfds
+    root = write_hfds(str(tmp_path / "hf"))
+    assert main([root, "--dataset", "hfds/local"] + argv) is not None
+    run = glob.glob(str(tmp_path / "out" / "train" / "*"))[0]
+    with open(os.path.join(run, "summary.csv")) as f:
+        row = next(csv.DictReader(f))
+    assert math.isfinite(float(row["train_loss"])) and 0 <= float(row["eval_top1"]) <= 100
+    log = open(os.path.join(run, "log.txt")).read()
+    assert re.findall(r"Train: 0 \[\s*1/2\]", log), log[-2000:]
+
+
+@pytest.mark.parametrize("data, dataset, workers, env, loads, expect", [
+    ("/data/imagenet", "", 8, "", True, "built"),
+    ("/data/records", "tfrecord", 2, "", True, "built"),
+    ("/data/imagenet", "", 8, "", False, "raises"),
+    ("/data/imagenet", "", 0, "", False, "nothing"),
+    ("/data/imagenet", "", 8, "1", False, "nothing"),
+    ("synthetic://", "", 8, "", False, "nothing"),
+    ("/data/hf", "hfds/local", 8, "", False, "nothing"),
+])
+def test_trainer_start_checks_the_native_decoder(data, dataset, workers, env, loads, expect,
+                                                 monkeypatch):
+    """With loader workers on JPEG files or records, a trainer's start
+    builds the native decoder and fails where it does not load (no quiet
+    PIL); `--workers 0`, AUTOPROG_NO_NATIVE=1 and data that brings its own
+    images check nothing."""
+    import argparse
+    from autoprog_tpu_torch import _build, main as port_main
+    from autoprog_tpu_torch.data import native
+    built = []
+    monkeypatch.setattr(_build, "build_native_image",
+                        lambda: built.append(1) or _build.NATIVE_DIR / "libfastimage.so")
+    monkeypatch.setattr(native, "available", lambda: loads)
+    monkeypatch.setenv("AUTOPROG_NO_NATIVE", env)
+    args = argparse.Namespace(data_dir=data, dataset=dataset, workers=workers)
+    if expect == "raises":
+        with pytest.raises(RuntimeError, match="AUTOPROG_NO_NATIVE=1"):
+            port_main.check_native_decoder(args)
+    else:
+        port_main.check_native_decoder(args)
+    assert built == ([] if expect == "nothing" else [1])
 
 
 @pytest.fixture(scope="module")

@@ -18,12 +18,16 @@ group, lay out the (data, model) grid with M = 2 and write what they saw to
   (f) `main_prog.main --auto-grow --model-parallel 2` through a grow boundary,
       then `--resume` of its checkpoint-1.ckpt at M = 2;
   (g) `validate.main` over the two ranks (data parallel: M = 1) on an eval
-      set that leaves each rank a padded last batch.
+      set that leaves each rank a padded last batch;
+  (h) one f32 step of deit_h2_l2 (built with attn_drop_rate > 0) and one of
+      volo_h4_l4, each with dropout on the attention probabilities, the
+      class attention and the MLPs' hidden units (the sharded dropout sites),
+      recording the masks each rank drew there.
 
 Four ranks (data 2 x model 2) run (a) on their data group's half of the
 batch. The test process meanwhile runs the JAX step on the virtual 8-device
 mesh with `make_mesh(model_parallel=2)` and `shard_state_tp`, as
-tests/test_tp.py does, and the one-process references of (c) to (g). The
+tests/test_tp.py does, and the one-process references of (c) to (h). The
 tolerances are those of tests/test_torch_dist.py: loss rel 1e-5; gradients
 rtol 1e-4 / atol 1e-5; parameters and EMA trees atol 1e-6. Each worker has
 one intra-op thread and its own timeout.
@@ -64,6 +68,8 @@ GROW_ARGV = ["synthetic://", "--model", "deit_h2_l2", "--num-classes", "8",
              "--img-size", "32", "-b", "8", "--workers", "0", "--no-bf16",
              "--drop-path", "0.0"]
 CLIPS = {"norm": 0.05, "agc": 0.01, "value": 1e-4}
+DROP = 0.2
+DROP_MODELS = ("deit_h2_l2", MODEL)
 JAX_RESUME_ARGV = ["synthetic://", "--model", MODEL, "--num-classes", str(NC),
                    "--img-size", str(IMG), "-b", str(B), "--workers", "0", "--no-bf16",
                    "--token-label", "--token-label-data", "synthetic", "--model-ema",
@@ -81,7 +87,7 @@ def _tree(npz, prefix):
 
 
 def build(model, full, buffers, *, args, dtype=torch.float32, img=IMG, nc=NC, remat="",
-          drop_path=0.0, ema=DECAYS, token_label=True):
+          drop_path=0.0, ema=DECAYS, token_label=True, attn_drop=0.0):
     """The model's state and step builder on this rank: the full parameters
     `full` (and `buffers`), sharded under the grid."""
     from autoprog_tpu_torch import create_model
@@ -91,7 +97,7 @@ def build(model, full, buffers, *, args, dtype=torch.float32, img=IMG, nc=NC, re
     from autoprog_tpu_torch.train.state import TrainState
     from autoprog_tpu_torch.train.steps import StepBuilder
     net = create_model(model).make(num_classes=nc, img_size=img, dtype=dtype, remat=remat,
-                                   drop_path_rate=drop_path,
+                                   drop_path_rate=drop_path, attn_drop_rate=attn_drop,
                                    model_parallel=mesh.model_count())
     tp.load_shards(net, full, buffers)
     state = TrainState.create(model=net, optimizer=create_optimizer(args, net),
@@ -154,6 +160,51 @@ def remat_step(remat):
     batch = {k: torch.from_numpy(v[mesh.process_batch_slice(B)]) for k, v in make_batch().items()}
     m = sb.train_step(state, batch, LR, r=IMG, bbox=torch.tensor([1, 1, 3, 2]))
     return float(mesh.mean_over_ranks(m["loss"])), tp.gather_local(grads)
+
+
+def dropout_step(model):
+    """One f32 step of `model` with dropout DROP at the sharded sites: the
+    attention probabilities (deit_h2_l2 built with attn_drop_rate; volo_h4_l4's
+    outlookers take none, so its transformers and class attention are set
+    after the build), and every MLP's hidden units. Returns the loss, the
+    gathered gradients and the masks this rank drew at those sites."""
+    from autoprog_tpu_torch.models import layers
+    from autoprog_tpu_torch.parallel import mesh, tp
+    deit = model == "deit_h2_l2"
+    img, nc = (32, 8) if deit else (IMG, NC)
+    full, buffers = seeded(model, img=img, nc=nc)
+    args = argparse.Namespace(**dict(vars(clip_args("norm")), clip_grad=None)) if deit \
+        else step_args()
+    state, sb = build(model, full, buffers, args=args, img=img, nc=nc, ema=(),
+                      token_label=not deit, attn_drop=DROP if deit else 0.0)
+    for m in state.model.modules():
+        if isinstance(m, layers.Mlp):
+            m.drop = DROP
+        elif isinstance(m, (layers.Attention, layers.ClassAttention)):
+            m.attn_drop = DROP
+    grads, masks = {}, []
+    optimizer_step, drop = state.optimizer.step, layers.dropout
+
+    def record():
+        grads.update({n: p.grad.clone() for n, p in state.model.named_parameters()})
+        optimizer_step()
+
+    def recorded(*args, **kwargs):
+        y = drop(*args, **kwargs)
+        if kwargs.get("shard_dim") is not None:
+            masks.append((y == 0).numpy())
+        return y
+    state.optimizer.step, layers.dropout = record, recorded
+    try:
+        if deit:
+            m = sb.train_step(state, deit_batch(), LR, r=img)
+        else:
+            batch = {k: torch.from_numpy(v[mesh.process_batch_slice(B)])
+                     for k, v in make_batch().items()}
+            m = sb.train_step(state, batch, LR, r=img, bbox=torch.tensor([1, 1, 3, 2]))
+    finally:
+        layers.dropout = drop
+    return float(mesh.mean_over_ranks(m["loss"])), tp.gather_local(grads), masks
 
 
 def grow(argv):
@@ -265,6 +316,14 @@ def worker(out_dir: str) -> None:
     res["grown_loss"] = float(ctx.sb.train_step(ctx.state, gbatch, LR, r=32)["loss"])
     _save(out("grown"), {"p": grown})
     del ctx
+
+    # (h) dropout at the sharded sites
+    res["dropout_loss"] = {}
+    for model in DROP_MODELS:
+        loss, grads, masks = dropout_step(model)
+        res["dropout_loss"][model] = loss
+        _save(out(f"dropout_{model}_"), {"g": grads})
+        np.savez(out(f"masks_{model}_"), *masks)
 
     # (f) the progressive trainer, then a resume at M = 2
     decisions = []
@@ -423,7 +482,8 @@ def _run_ranks(tmp_path_factory):
             os.link(os.path.join(dirs[2], "step_in.npz"), os.path.join(d, "step_in.npz"))
     procs = {n: _spawn(d, n) for n, d in dirs.items()}
     jax_out = _jax_tp_step(j, dirs[2])
-    ref = {"clip": {mode: clip_step(mode) for mode in CLIPS}, "grown": grow(GROW_ARGV)[1]}
+    ref = {"clip": {mode: clip_step(mode) for mode in CLIPS}, "grown": grow(GROW_ARGV)[1],
+           "dropout": {model: dropout_step(model)[:2] for model in DROP_MODELS}}
     res = {n: _wait(procs[n], d) for n, d in dirs.items()}
     ckpt = glob.glob(os.path.join(dirs[2], "out0", "train", "*", "checkpoint-1.ckpt"))[0]
     one = os.path.join(dirs[2], "resume_one")
@@ -693,6 +753,31 @@ def test_remat_full_under_tp_equals_no_remat(ranks):
     full = _full(ranks, "remat", "full")
     for k in plain:
         assert torch.equal(plain[k], full[k]), k
+
+
+@pytest.mark.parametrize("model", DROP_MODELS)
+def test_dropout_under_tp_equals_one_process(ranks, model):
+    """Dropout inside the blocks at M = 2: each rank draws the mask of the
+    full tensor from the step's generator and keeps its block, so the loss
+    and the gathered gradients equal one process's step from the same
+    generator seed, up to summation order."""
+    loss, grads = ranks["ref"]["dropout"][model]
+    for r in ranks["res"][2]:
+        assert r["dropout_loss"][model] == pytest.approx(loss, rel=1e-5)
+    _close(_full(ranks, f"dropout_{model}_", "g"), grads, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("model", DROP_MODELS)
+def test_sharded_dropout_masks_differ_across_ranks(ranks, model):
+    """The two ranks of the model group hold other heads and other hidden
+    units, so their masks at every sharded site differ (one generator seed
+    on both: a mask of the shard's shape would repeat across them)."""
+    d = ranks["dirs"][2]
+    m0, m1 = (np.load(os.path.join(d, f"masks_{model}_{r}.npz")) for r in (0, 1))
+    assert len(m0.files) == len(m1.files) >= 4
+    for k in m0.files:
+        assert m0[k].shape == m1[k].shape and m0[k].any()
+        assert not np.array_equal(m0[k], m1[k]), k
 
 
 def test_growth_under_tp_equals_one_process(ranks):
