@@ -191,12 +191,18 @@ class Loader:
         #      workers we are about to kill;
         #   2. SIGKILL the worker processes — the only other holders of
         #      the queue locks;
-        #   3. run the Pool's own terminate() on a daemon thread with a
-        #      bounded join: if a killed worker died holding a lock, the
-        #      acquire inside terminate can still hang, but it hangs a
-        #      disposable thread, not the trainer. Finalize pops itself
-        #      from the registry at call entry, so interpreter exit will
-        #      not re-run (and re-hang) the teardown.
+        #   3. free the queue locks a killed worker died holding: an idle
+        #      worker holds the task queue's read lock while it waits, so
+        #      after every full epoch terminate() below hung until its
+        #      bounded join gave up, 10 s a close (the port's departure
+        #      from the JAX package's copy; with the workers dead, no
+        #      process or thread of the pool takes these locks any more);
+        #   4. run the Pool's own terminate() on a daemon thread with a
+        #      bounded join: should a lock still be held, the acquire
+        #      inside terminate hangs a disposable thread, not the
+        #      trainer. Finalize pops itself from the registry at call
+        #      entry, so interpreter exit will not re-run (and re-hang)
+        #      the teardown.
         try:
             import multiprocessing.pool as mpp
             pool._worker_handler._state = mpp.TERMINATE
@@ -212,6 +218,11 @@ class Loader:
                 p.join(timeout=2)
             except Exception:
                 pass
+        for lock in (getattr(getattr(pool, "_inqueue", None), "_rlock", None),
+                     getattr(getattr(pool, "_outqueue", None), "_wlock", None)):
+            if lock is not None:
+                lock.acquire(False)     # free, or held by a dead worker:
+                lock.release()          # either way released
         t = threading.Thread(target=pool.terminate, daemon=True)
         t.start()
         t.join(timeout=10)

@@ -12,7 +12,9 @@ tensorflow_datasets is installed (else its ImportError).
 
 `--resume` (either package's checkpoint; then `--start-epoch` overrides the
 epoch), `--finetune` and `--initial-checkpoint` are each followed by one
-eval pass.
+eval pass. The log's last line counts the run's K1 / K2 launches
+(`kernel launches: {...}`; all 0 on the CPU, where the plain twins run);
+main_prog.py logs the same.
 
 Data parallel across processes, one rank per GPU (`parallel/mesh.py`):
 
@@ -40,6 +42,7 @@ from autoprog_tpu_torch.utils.logging import make_output_dir, setup_logging, upd
 from autoprog_tpu_torch.utils.meters import AverageMeter
 from autoprog_tpu_torch import engine
 from autoprog_tpu_torch.finetune import load_pretrained_weights
+from autoprog_tpu_torch.ops import launch_counts, launches_since
 from autoprog_tpu_torch.parallel import mesh
 from autoprog_tpu_torch.registry import create_model
 from autoprog_tpu_torch.train.checkpoint import CheckpointSaver, load_checkpoint_file
@@ -132,6 +135,7 @@ def main(argv=None):
 
 
 def _train(args, args_text):
+    launches_at_start = launch_counts()
     output_dir = start_process(args, args.model, "fixed", args.batch_splits)
     # token_label_size follows the resolution BEFORE the loss is selected
     img_size = args.img_size or resolve_data_config(
@@ -184,6 +188,7 @@ def _train(args, args_text):
     if best_metric is not None:
         _logger.info("*** Best metric: %s (epoch %s)", best_metric, best_epoch)
     _logger.info("total train time: %.1fs", epoch_time_m.sum)
+    _logger.info("kernel launches: %s", launches_since(launches_at_start))
     return best_metric
 
 

@@ -32,6 +32,7 @@ from typing import List
 from autoprog_tpu_torch import engine
 from autoprog_tpu_torch.config import parse_args, parse_variant_name
 from autoprog_tpu_torch.main import load_initial_weights, make_saver, start_process
+from autoprog_tpu_torch.ops import launch_counts, launches_since
 from autoprog_tpu_torch.parallel import mesh
 from autoprog_tpu_torch.prog import autogrow
 from autoprog_tpu_torch.prog.depth import elastic_keep_masks
@@ -128,6 +129,7 @@ def main(argv=None):
 
 def _train(args, args_text):
     args.model = _VARIANT_ALIASES.get(args.model, args.model)
+    launches_at_start = launch_counts()
     output_dir = start_process(args, args.model, "prog", args.batch_splits_list[-1])
 
     # progressive schedule
@@ -307,6 +309,7 @@ def _train(args, args_text):
         _logger.info("*** Best metric: %s (epoch %s)", best_metric,
                      best_epoch)
     _logger.info("total train time: %.1fs", epoch_time_m.sum)
+    _logger.info("kernel launches: %s", launches_since(launches_at_start))
     global LAST_CTX
     LAST_CTX = ctx
     return best_metric

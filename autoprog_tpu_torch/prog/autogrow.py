@@ -19,7 +19,10 @@ are host code, copied unchanged. The rest is ported:
   * the step time is `iters` forward + backward steps between two CUDA
     events after a warm-up step (`train/steps.py:chained_throughput_probe`);
   * per-batch losses stay on the device and are read once per log interval
-    (averaged over the ranks under a process group);
+    (averaged over the ranks under a process group); AUTOPROG_SYNC_SEARCH=1
+    reads each probe step's loss and each supernet step's loss to the host
+    as it comes, as the JAX package's switch does, only so that the cost of
+    those reads can be measured (`scripts/ab_search_sync.py`);
   * `sync_decision` broadcasts rank 0's decision under a process group
     (`parallel/mesh.py`); every rank draws the same candidates from the same
     `RandomState(epoch)`, and the probes' times stay per rank until then.
@@ -28,6 +31,7 @@ are host code, copied unchanged. The rest is ported:
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -179,9 +183,13 @@ def probe_candidate(ctx, batches: Sequence, *, r: int, keep, params,
     """Loss (and optionally step-time) probe over the fixed probe batches.
     Every candidate draws its DropPath masks and MixToken boxes from
     generators seeded alike, and the loss sum stays on the device: one host
-    read per probe."""
+    read per probe (one per step under AUTOPROG_SYNC_SEARCH=1, which sums
+    the losses in float64 on the host)."""
     if not batches:
         raise ValueError("probe_candidate called with no probe batches")
+    _logger.info("probe r%d keep=%s: loss probe (first dispatch compiles)",
+                 r, "full" if keep is None else sum(sum(k) for k in keep))
+    sync = os.environ.get("AUTOPROG_SYNC_SEARCH") == "1"
     seed = ctx.args.seed + 4242
     drop_gen = torch.Generator(ctx.device).manual_seed(seed)
     mix_gen = torch.Generator("cpu").manual_seed(seed + 1)
@@ -190,6 +198,8 @@ def probe_candidate(ctx, batches: Sequence, *, r: int, keep, params,
     for batch in batches:
         loss = ctx.sb.loss_probe_step(ctx.state, batch, r=r, keep=keep, params=params,
                                       drop_gen=drop_gen, mix_gen=mix_gen)
+        if sync:
+            loss = float(loss)
         # sample-weighted so that a short final batch does not skew the mean
         bs = int(batch["image"].shape[0])
         loss_sum = loss * bs if loss_sum is None else loss_sum + loss * bs
@@ -197,6 +207,7 @@ def probe_candidate(ctx, batches: Sequence, *, r: int, keep, params,
     out = {"loss": float(loss_sum) / n}
     if with_time:
         iters = int(getattr(ctx.args, "search_time_iters", 10))
+        _logger.info("probe r%d: chained time probe (compile+warm)", r)
         out["time"] = ctx.sb.chained_throughput_probe(
             ctx.state, batches[0], r=r, keep=keep, iters=iters, params=params,
             drop_gen=drop_gen, mix_gen=mix_gen)
@@ -251,6 +262,7 @@ def train_one_epoch_super(ctx, epoch: int, loader, loader_search, *,
     loss_0, loss_last = {}, {}
     end = time.time()
     pending: List[Tuple[int, int, torch.Tensor]] = []
+    sync = os.environ.get("AUTOPROG_SYNC_SEARCH") == "1"
 
     def drain():
         if not pending:
@@ -270,6 +282,8 @@ def train_one_epoch_super(ctx, epoch: int, loader, loader_search, *,
         metrics = ctx.sb.train_step(ctx.state, to_device(batch, ctx.device), lr, r=r,
                                     keep=keep_of[l], splits=splits, re_prob=device_re)
         pending.append((r_list.index(r), l_list.index(l), metrics["loss"]))
+        if sync:
+            drain()
         batch_time.update(time.time() - end)
 
         if batch_idx % args.log_interval == 0 or batch_idx == nb - 1 or \

@@ -37,8 +37,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     from autoprog_tpu_torch.platform import default_device
     from autoprog_tpu_torch.registry import create_model
     from autoprog_tpu_torch.scripts.bench_parts import keep_masks
-    from autoprog_tpu_torch.scripts.timing import (card_name, launch_counts,
-                                                   launches_since, time_call)
+    from autoprog_tpu_torch.ops import launch_counts, launches_since
+    from autoprog_tpu_torch.scripts.timing import card_name, time_call
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("batch", nargs="?", type=int, default=None)

@@ -36,7 +36,8 @@ EMA_DECAYS = (0.998,)
 def main(argv: Optional[List[str]] = None) -> Dict:
     from autoprog_tpu_torch import bench
     from autoprog_tpu_torch.platform import default_device
-    from autoprog_tpu_torch.scripts.timing import card_name, launch_counts, launches_since
+    from autoprog_tpu_torch.ops import launch_counts, launches_since
+    from autoprog_tpu_torch.scripts.timing import card_name
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--iters", type=int, default=0, help="0: 10 on the card, 1 on the CPU")

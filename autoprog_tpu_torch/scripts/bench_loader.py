@@ -81,8 +81,9 @@ def _require_native(use_native: bool) -> None:
 def _rate(loader, closing: List[threading.Thread]) -> float:
     """img/s over one epoch after its first batch (the pool's spin-up).
 
-    The pool's teardown (`Loader.close`: the workers killed, then up to 10 s
-    of a bounded join on the pool's own terminate) runs on a thread that is
+    The pool's teardown (`Loader.close`: the workers killed, their queue
+    locks freed, then a bounded join of up to 10 s on the pool's own
+    terminate) runs on a thread that is
     appended to `closing`, so that it does not hold up the next
     configuration; the caller joins those threads before it exits. Until a
     teardown has begun its terminate, the pool's exit handler is still

@@ -37,7 +37,8 @@ import torch
 def main(argv: Optional[List[str]] = None) -> Dict:
     from autoprog_tpu_torch import bench
     from autoprog_tpu_torch.platform import default_device
-    from autoprog_tpu_torch.scripts.timing import card_name, launch_counts, launches_since
+    from autoprog_tpu_torch.ops import launch_counts, launches_since
+    from autoprog_tpu_torch.scripts.timing import card_name
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", default="volo_h12_l18")

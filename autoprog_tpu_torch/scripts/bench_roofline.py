@@ -217,7 +217,8 @@ def main(argv=None) -> Dict:
     from autoprog_tpu_torch import bench
     from autoprog_tpu_torch.platform import default_device
     from autoprog_tpu_torch.scripts import bench_parts
-    from autoprog_tpu_torch.scripts.timing import card_name, launch_counts, launches_since
+    from autoprog_tpu_torch.ops import launch_counts, launches_since
+    from autoprog_tpu_torch.scripts.timing import card_name
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("batch", nargs="?", type=int, default=None)

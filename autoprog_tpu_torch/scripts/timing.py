@@ -5,7 +5,7 @@ would measure the enqueue. On the CPU (tests) it is `time.perf_counter`."""
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict
+from typing import Callable
 
 import torch
 
@@ -58,17 +58,3 @@ def smi_card(index: int = 0) -> str:
     if smi.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
     return smi.stdout.strip()
-
-
-def launch_counts() -> Dict[str, Dict[str, int]]:
-    """K1's and K2's launch counters as they stand, forward and backward
-    (`ops/attention.LAUNCHES`, `ops/outlook_fused.LAUNCHES`)."""
-    from autoprog_tpu_torch.ops import attention, outlook_fused
-    return {"K1": {s: attention.LAUNCHES[s] for s in ("fwd", "bwd")},
-            "K2": {s: outlook_fused.LAUNCHES[s] for s in ("fwd", "bwd")}}
-
-
-def launches_since(start: Dict[str, Dict[str, int]]) -> Dict[str, Dict[str, int]]:
-    """K1's and K2's launches since `start = launch_counts()`."""
-    now = launch_counts()
-    return {k: {s: now[k][s] - start[k][s] for s in now[k]} for k in now}

@@ -185,10 +185,26 @@ back to the CPU or to a plain twin):
      backward) and `bench_loader --images 512 --repeats 1` on the host's
      cores (at most 8) in its three modes, with the native decoder loaded;
      any nonzero exit fails the run.
+ 14. the A/B and accuracy scripts (`autoprog_tpu_torch/scripts/`), each run
+     as a user runs it, in a process of its own, at a cut:
+     `analyze_rehearsal` over phase 5's and phase 4's logs (phase 5's
+     decision, its stages ending at r=224, l=18, both runs' total train
+     time); `real_data_digits --epochs 2 --seeds 42` (both arms a finite
+     top-1, the AutoProg arm a decision); `ab_procgen --epochs 2
+     --train-size 512 --num-classes 10 --img-size 64 -b 32 --stages 2
+     --seeds 42 --workers 4`, then `--summarize-only`, which must reuse the
+     pair and print its table again; `ab_search_sync --fake-data-size 512
+     --search-probe-steps 10` (both timed legs print a per-probe time; it
+     runs beside the two accuracy scripts, so its times are no measurement). Each
+     trainer run's K1 / K2 launches are read from its log's last line and
+     must be above 0. The bench scripts `ab_bf16_state` and `ab_sparse_tl`
+     are left out: phase 10 already sets their switches on the card. Any
+     nonzero exit, 4 included, fails the run.
 
 The line before the last is the kernel report (JSON): for each kernel its
-launches on its path (K1 and K2: phases 4 to 6 and 9 to 13, both ranks of
-phase 11 (b) and of phase 12 (c) counted; K1's rows per shape: phases
+launches on its path (K1 and K2: phases 4 to 6 and 9 to 12, both ranks of
+phase 11 (b) and of phase 12 (c) counted, and apart from them, under
+`script_launches`, phase 13's and phase 14's scripts by name; K1's rows per shape: phases
 4 to 7 at that shape; `loop_img1`: its timing run of phase 8; K3, K4: the
 variants run of phase 8 and phase 13's outlook rows; K5 and the MHSA
 variants: the measurement scripts of phase 7), its
@@ -2524,12 +2540,12 @@ def phase_tensor_parallel(torch, card, prog_run, prog_argv):
     return k1, k2
 
 
-def _run_script(name: str, args, timeout: int):
+def _run_module(name: str, args, timeout: int, phase: int):
     """`python -m autoprog_tpu_torch.scripts.<name> <args>` in a process of
     its own (this one holds a CUDA context, and the loader spawns workers),
     with the environment of a user's shell: none of the port's switches
-    that earlier phases set, no torchrun variables. Its table (stderr) is
-    echoed; its last stdout line is parsed. Fails on a nonzero exit."""
+    that earlier phases set, no torchrun variables. The last lines of its
+    stderr are echoed. Fails on a nonzero exit."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("AUTOPROG_") and k not in
            ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
     cmd = [sys.executable, "-m", f"autoprog_tpu_torch.scripts.{name}", *map(str, args)]
@@ -2542,11 +2558,17 @@ def _run_script(name: str, args, timeout: int):
         say(f"  | {line}")
     if res.returncode != 0:
         fail(f"{' '.join(cmd[2:])} exited {res.returncode}:\n{res.stderr[-3000:]}")
-    lines = res.stdout.strip().splitlines()
+    say(f"phase {phase} python -m autoprog_tpu_torch.scripts.{name} "
+        f"{' '.join(map(str, args))}: {time.time() - t0:.1f} s")
+    return res
+
+
+def _run_script(name: str, args, timeout: int):
+    """A measurement script run by `_run_module`; its last stdout line (one
+    JSON object) parsed."""
+    lines = _run_module(name, args, timeout, 13).stdout.strip().splitlines()
     if not lines:
-        fail(f"{' '.join(cmd[2:])} printed no JSON line")
-    say(f"phase 13 python -m autoprog_tpu_torch.scripts.{name} {' '.join(map(str, args))}: "
-        f"{time.time() - t0:.1f} s")
+        fail(f"{name} printed no JSON line")
     return json.loads(lines[-1])
 
 
@@ -2629,6 +2651,125 @@ def phase_scripts(card):
     return launches, attend
 
 
+def _run_launches(log_path: str):
+    """The K1 / K2 launches a trainer's log counts on its last line
+    (`kernel launches: {...}`)."""
+    import ast
+    found = re.findall(r"kernel launches: (\{.*\})", open(log_path).read())
+    if not found:
+        fail(f"{log_path} holds no 'kernel launches' line: the run did not end")
+    return ast.literal_eval(found[-1])
+
+
+def _arm_launches(what: str, logs):
+    """The K1 / K2 launches of the trainer runs whose logs are `logs`,
+    summed; fails where a run launched no K1 or no K2, forward or backward."""
+    total = {k: {"fwd": 0, "bwd": 0} for k in ("K1", "K2")}
+    for log in logs:
+        got = _run_launches(log)
+        if not all(got[k][s] > 0 for k in ("K1", "K2") for s in ("fwd", "bwd")):
+            fail(f"{what}: the run of {log} launched no K1 or no K2: {got}")
+        for k in total:
+            for s in total[k]:
+                total[k][s] += got[k][s]
+    return total
+
+
+def _run_logs(root: str, arm: str):
+    return sorted(glob.glob(os.path.join(root, arm, "train", "*", "log.txt")))
+
+
+def _accuracy_scripts(root: str):
+    """`real_data_digits` (2 epochs, one seed), then `ab_procgen` (2 epochs,
+    512 images at 64 px) and its `--summarize-only` on the same root; each
+    arm a trainer in the script's process. Returns their launches."""
+    launches = {}
+    res = _run_module("real_data_digits", ["--epochs", 2, "--seeds", 42, "--root", root], 200,
+                      14)
+    for line in res.stdout.strip().splitlines():
+        say(f"  > {line}")
+    top1 = re.findall(r"\[seed 42\] fixed (\S+) .* autoprog (\S+) ", res.stdout)
+    runs = os.path.join(root, "digits_runs")
+    auto_logs = _run_logs(runs, "autoprog_s42")
+    if not top1 or not all(math.isfinite(float(v)) for v in top1[0]) or not auto_logs or \
+            "auto grow decision" not in open(auto_logs[-1]).read():
+        fail("real_data_digits: no finite top-1 for both arms, or no AutoProg decision")
+    launches["real_data_digits"] = _arm_launches(
+        "real_data_digits", _run_logs(runs, "fixed_s42") + auto_logs)
+
+    proc_root = os.path.join(root, "procgen_runs")
+    cut = ["--epochs", 2, "--train-size", 512, "--num-classes", 10, "--img-size", 64, "-b", 32,
+           "--stages", 2, "--seeds", 42, "--workers", 4, "--root", proc_root]
+    res = _run_module("ab_procgen", cut, 200, 14)
+    again = _run_module("ab_procgen", cut + ["--summarize-only"], 60, 14)
+    for line in again.stdout.strip().splitlines():
+        say(f"  > {line}")
+    table = res.stdout[res.stdout.index("model="):] if "model=" in res.stdout else None
+    if "[reuse] fixed s42" not in again.stdout or "[reuse] autoprog s42" not in again.stdout \
+            or table is None or not again.stdout.endswith(table):
+        fail("ab_procgen --summarize-only did not reuse the completed pair and print its "
+             "table")
+    launches["ab_procgen"] = _arm_launches(
+        "ab_procgen", _run_logs(proc_root, "fixed_s42") + _run_logs(proc_root, "autoprog_s42"))
+    return launches
+
+
+def _search_sync_script():
+    """`ab_search_sync` at 512 images and 10 probe batches: three `main_prog`
+    processes; both timed legs must print a per-probe time. Returns their
+    launches."""
+    sync_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "output",
+                             "ab_search_sync")
+    before = set(glob.glob(os.path.join(sync_root, "*", "train", "*", "log.txt")))
+    res = _run_module("ab_search_sync", ["--fake-data-size", 512, "--search-probe-steps", 10],
+                      240, 14)
+    for line in res.stdout.strip().splitlines():
+        say(f"  > {line}")
+    legs = re.findall(r"^(sync|desync)\s+per-probe\s+(\S+) ms \(n=(\d+)\)", res.stdout, re.M)
+    if [leg for leg, _, _ in legs] != ["sync", "desync"] or not all(
+            math.isfinite(float(ms)) and float(ms) > 0 and int(n) > 0 for _, ms, n in legs):
+        fail(f"ab_search_sync: both timed legs must print a per-probe time: {legs}")
+    new = sorted(set(glob.glob(os.path.join(sync_root, "*", "train", "*", "log.txt"))) - before)
+    if len(new) != 3:
+        fail(f"ab_search_sync: expected three new run logs, found {new}")
+    return {"ab_search_sync": _arm_launches("ab_search_sync", new)}
+
+
+def phase_ab_scripts(prog_run, fixed_run):
+    """Phase 14: the A/B and accuracy scripts, each run as a user runs it, in
+    a process of its own, at a cut: `analyze_rehearsal` over phase 5's and
+    phase 4's logs, then the accuracy scripts (`_accuracy_scripts`, on a
+    thread) beside `ab_search_sync`: their processes mostly wait on start-up
+    and the host, so the two strands overlap (the search-sync times that
+    phase prints are not a measurement). Checks the tables they print and
+    reads each trainer run's K1 / K2 launches from its log. The two bench
+    scripts (`ab_bf16_state`, `ab_sparse_tl`) are left out: phase 10
+    already sets their switches on the card. Returns the launches by script, which
+    are not the main path's."""
+    from concurrent.futures import ThreadPoolExecutor
+    t_phase = time.time()
+    prog_log, fixed_log = (os.path.join(r, "log.txt") for r in (prog_run, fixed_run))
+    res = _run_module("analyze_rehearsal", [prog_log, fixed_log], 60, 14)
+    for line in res.stdout.strip().splitlines():
+        say(f"  > {line}")
+    decision = re.findall(r"auto grow decision: r=(\d+) l=(\d+)", open(prog_log).read())
+    stages = re.findall(r"stage \d+: r=(\d+) h=\d+ l=(\d+)", res.stdout)
+    totals = re.findall(r"total train-loop time: ([\d.]+)s", res.stdout)
+    if f"decision: r={decision[0][0]} l={decision[0][1]}" not in res.stdout or \
+            not stages or stages[-1] != ("224", "18") or len(totals) != 2:
+        fail("analyze_rehearsal did not find phase 5's decision, its stages ending at "
+             "r=224, l=18, and both runs' total train time")
+    root = tempfile.mkdtemp(prefix="chip_smoke_ab_")
+    with ThreadPoolExecutor(1) as pool:
+        accuracy = pool.submit(_accuracy_scripts, root)
+        launches = _search_sync_script()
+        launches.update(accuracy.result())     # re-raises the thread's failure
+    shutil.rmtree(root, ignore_errors=True)
+    say(f"phase 14 launches: {launches}")
+    say(f"phase 14: {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def _row(name, src, replaces, launches, err, t, key):
     lib = t.get("lib_" + key)
     return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -2674,6 +2815,7 @@ def main():
     dp_k1, dp_k2 = phase_data_parallel(torch, card, fixed_run, fixed_argv, prog_argv)
     tp_k1, tp_k2 = phase_tensor_parallel(torch, card, prog_run, prog_argv)
     sc, sc_attend = phase_scripts(card)
+    sc.update(phase_ab_scripts(prog_run, fixed_run))
     pal = "autoprog_tpu/ops/outlook_pallas.py"
     att = "autoprog_tpu/ops/attention_pallas.py"
     k1 = {side: fixed[side] + prog_k1[side] + deit_k1[side] + ck_k1[side] + op_k1[side] +
@@ -2682,8 +2824,9 @@ def main():
           tp_k2[side] for side in ("fwd", "bwd")}
 
     def scripts(kernel, side):
-        """Phase 13's launches of a K1 / K2 side by script: the measurement
-        scripts' own processes, kept out of the main path's `launches`."""
+        """Phases 13's and 14's launches of a K1 / K2 side by script: the
+        measurement and A/B scripts' own processes, kept out of the
+        main path's `launches`."""
         return {"script_launches": {name: got[kernel][side] for name, got in sc.items()}}
 
     def vrow(key, src, replaces):

@@ -1,6 +1,6 @@
 """The port keeps its own copies of the JAX package's jax-free host modules
 (config, logging, meters, the progressive schedule and depth maps, the data
-pipeline). Each copy is held to its original on the CPU: equal values, not
+pipeline, the rehearsal analyzer of scripts/). Each copy is held to its original on the CPU: equal values, not
 approximately."""
 
 import dataclasses
@@ -141,10 +141,52 @@ def check_native_falls_back_to_pil():
             os.environ["AUTOPROG_NO_NATIVE"] = old
 
 
+def check_analyze_rehearsal():
+    """The rehearsal analyzer (a copy of `scripts/analyze_rehearsal.py`,
+    which imports nothing of either package): the same events, epoch times
+    and printed table on a log in the trainers' words, across a resume."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from scripts import analyze_rehearsal as j
+    t = importlib.import_module("autoprog_tpu_torch.scripts.analyze_rehearsal")
+    lines = ["stage 0: {'r': 128, 'h': 12, 'l': 9, 'dp': 0.0}",
+             "Train: 0 [   0/64]  Loss: 6.9  LR: 1e-3  0.0 img/s  Data: 0.1s",
+             "Train: 0 [  63/64]  Loss: 6.8  LR: 1e-3  2100.5 img/s  Data: 0.0s",
+             "Test: loss 6.9012  Acc@1 0.1000  Acc@5 0.5000",
+             "TrainSuper: 1 [   0/64] sampled r160 l12  All Loss: r0_l0: 6.9",
+             "TrainSuper: 1 [  63/64] sampled r128 l9  All Loss: r0_l0: 6.8",
+             "auto grow decision: r=160 l=12",
+             "stage 1: {'r': 160, 'h': 12, 'l': 12, 'dp': 0.0}",
+             "Train: 2 [   0/64]  Loss: 6.6  LR: 1e-3  0.0 img/s  Data: 0.0s",
+             "Train: 2 [  63/64]  Loss: 6.5  LR: 1e-3  1500.2 img/s  Data: 0.0s",
+             "Test: loss 6.7512  Acc@1 0.3000  Acc@5 1.1000",
+             "total train time: 42.5s"]
+    with tempfile.TemporaryDirectory() as d:
+        paths = []
+        for k, cut in enumerate((9, len(lines))):     # an attempt, then its resume
+            p = os.path.join(d, f"log{k}.txt")
+            with open(p, "w") as f:
+                f.writelines(f"2026-01-02 03:{k:02d}:{i:02d},{7 * i:03d} INFO x: {m}\n"
+                             for i, m in enumerate(lines[:cut]))
+            paths.append(p)
+        assert j.parse(paths[1]) == t.parse(paths[1]) and len(t.parse(paths[1])) == 12
+        assert j.epoch_times(j.parse(paths[1])) == t.epoch_times(t.parse(paths[1]))
+        printed = []
+        for mod in (j, t):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                mod.summarize(paths, "autoprog (stitched)")
+                mod.summarize(paths[1], "fixed")
+            printed.append(buf.getvalue())
+        assert printed[0] == printed[1] and "decision: r=160 l=12" in printed[1]
+
+
 @pytest.mark.parametrize("check", [
     check_parse_args, check_progressive_schedule, check_get_divisor,
     check_elastic_keep_masks, check_super_select_indices, check_synthetic_loader,
-    check_meters, check_native_falls_back_to_pil,
+    check_meters, check_native_falls_back_to_pil, check_analyze_rehearsal,
 ], ids=lambda f: f.__name__[6:])
 def test_copy_equals_its_original(check):
     check()

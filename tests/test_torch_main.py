@@ -65,7 +65,8 @@ def test_main_cli_trains_evaluates_and_saves_on_cpu(tmp_path):
 
 def test_import_leaves_jax_out():
     """Importing every module of the port (and building a model) loads
-    neither jax, flax, optax nor any module of the JAX package."""
+    neither jax, flax, optax, sklearn nor any module of the JAX package or of
+    the top-level scripts/."""
     code = ("import importlib, pkgutil, sys\n"
             "import autoprog_tpu_torch\n"
             "names = [m.name for m in pkgutil.walk_packages(autoprog_tpu_torch.__path__,\n"
@@ -76,7 +77,9 @@ def test_import_leaves_jax_out():
             "            'validate', 'finetune', 'train.flax_msgpack', 'parallel.mesh',\n"
             "            'parallel.tp', 'scripts.tp_parity', 'scripts.cost',\n"
             "            'scripts.bench_roofline', 'scripts.bench_loader', 'scripts.bench_eval',\n"
-            "            'scripts.bench_remat', 'scripts.bench_family', 'scripts.bench_outlook'):\n"
+            "            'scripts.bench_remat', 'scripts.bench_family', 'scripts.bench_outlook',\n"
+            "            'scripts.ab_bf16_state', 'scripts.ab_sparse_tl', 'scripts.real_data_digits',\n"
+            "            'scripts.ab_procgen', 'scripts.analyze_rehearsal', 'scripts.ab_search_sync'):\n"
             "    assert 'autoprog_tpu_torch.' + new in names, new\n"
             "for name in names:\n"
             "    importlib.import_module(name)\n"
@@ -84,7 +87,8 @@ def test_import_leaves_jax_out():
             "create_model('volo_d1').make(num_classes=10)\n"
             "create_model('deit_small_distilled_patch16_224').make(num_classes=10)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-            "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'autoprog_tpu')]\n"
+            "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'autoprog_tpu', 'sklearn',\n"
+            "                                'scripts')]\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=120)
@@ -93,7 +97,8 @@ def test_import_leaves_jax_out():
 
 def test_no_source_file_imports_jax_or_the_jax_package():
     import re
-    pat = re.compile(r"^\s*(from|import) +(autoprog_tpu\b[^_]|jax|flax|optax|scripts\b)", re.M)
+    pat = re.compile(r"^\s*(from|import) +(autoprog_tpu\b[^_]|jax|flax|optax|scripts\b|sklearn)",
+                     re.M)
     files = glob.glob(os.path.join(REPO, "autoprog_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 30
