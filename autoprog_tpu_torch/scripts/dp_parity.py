@@ -76,14 +76,17 @@ def box(img_size: int):
 
 def setup(batch: int, dtype, *, seed: int = 0, model: str = "volo_d1",
           img_size: int = 224, num_classes: int = 1000, drop_path: float = 0.0,
-          device: str = "cuda", bias_std: float = 0.0):
-    """`model` from `seed` with AdamW, 4 EMAs and its step builder, and a
+          device: str = "cuda", bias_std: float = 0.0, opt: str = "adamw",
+          opt_eps=None, mu_bf16: bool = False, ema_bf16: bool = False, remat: str = ""):
+    """`model` from `seed` with its optimizer, 4 EMAs and its step builder, and a
     synthetic token-label batch of `batch` rows drawn on the host from
     `seed` (the same rows in every process). Rank 0's parameters are
     broadcast under a group; under the grid of `--model-parallel`
     (`mesh.init_grid`) each rank then keeps its shard (`parallel/tp.py`).
     `bias_std` > 0 draws every bias from N(0, bias_std) (the init leaves
-    them 0, where a fault in how a bias is added cannot show)."""
+    them 0, where a fault in how a bias is added cannot show). The step's
+    options: `opt` (`--opt`), `opt_eps`, `mu_bf16` (`--adam-mu-bf16`),
+    `ema_bf16` (`--model-ema-bf16`) and `remat` (`--remat`)."""
     from autoprog_tpu_torch import create_model
     from autoprog_tpu_torch.losses import build_train_loss
     from autoprog_tpu_torch.parallel import mesh, tp
@@ -91,12 +94,13 @@ def setup(batch: int, dtype, *, seed: int = 0, model: str = "volo_d1",
     from autoprog_tpu_torch.train.state import TrainState
     from autoprog_tpu_torch.train.steps import StepBuilder
     g_side = img_size // 16
-    args = argparse.Namespace(opt="adamw", opt_betas=None, opt_eps=None, weight_decay=0.05,
-                              token_label=True, token_label_size=g_side, ground_truth=False,
-                              dense_weight=0.5, cls_weight=1.0)
+    args = argparse.Namespace(opt=opt, opt_betas=None, opt_eps=opt_eps, weight_decay=0.05,
+                              momentum=0.9, adam_mu_bf16=mu_bf16, token_label=True,
+                              token_label_size=g_side, ground_truth=False, dense_weight=0.5,
+                              cls_weight=1.0)
     torch.manual_seed(seed)
     kw = dict(num_classes=num_classes, img_size=img_size, drop_path_rate=drop_path,
-              dtype=dtype)
+              dtype=dtype, remat=remat)
     net = create_model(model).make(**kw)
     if bias_std:
         g = torch.Generator().manual_seed(7 + seed)
@@ -113,7 +117,8 @@ def setup(batch: int, dtype, *, seed: int = 0, model: str = "volo_d1",
         tp.load_shards(net, full, buffers)
         del full, buffers
     state = TrainState.create(model=net, optimizer=create_optimizer(args, net),
-                              ema_decays=DECAYS)
+                              ema_decays=DECAYS,
+                              ema_dtype=torch.bfloat16 if ema_bf16 else None)
     sb = StepBuilder(train_loss=build_train_loss(args), ema_decays=DECAYS,
                      num_classes=num_classes, token_label=True, has_token_label_data=True,
                      device=torch.device(device), seed=seed, rank=mesh.data_index())

@@ -28,6 +28,13 @@ readings with and without the faults are what the limits below are set
 between; each row says whether it keeps them. `chip_smoke.py` phase 12 (a)
 and `tests/test_torch_tp.py` hold the step to them.
 
+The module also runs and holds the step's options under the grid for
+`chip_smoke.py` phase 12 (f) and tests/test_torch_tp.py: `leg_steps` records
+a few steps' losses, gradients, parameters, optimizer state and EMA trees,
+gathered; `mu_bf16_bounds` and `ema_bf16_steps` hold the bf16 first moment
+(`--adam-mu-bf16`) and the bf16 EMA trees (`--model-ema-bf16`) to what one
+rounding apart allows.
+
 The table goes to stderr; the last line of stdout is one JSON object with
 every reading (and, on the card, its name and power limit). On the CPU
 (`--device cpu`, a small model such as `--model volo_h4_l4 --img-size 64
@@ -107,6 +114,159 @@ def tp_step(state, sb, data, img_size: int = 224):
     from autoprog_tpu_torch.parallel import tp
     loss, grads, stats = dp_parity.dp_step(state, sb, data, img_size)
     return loss, tp.gather_local(grads), stats
+
+
+def gathered(tree) -> Dict[str, torch.Tensor]:
+    """`tp.gather_local(tree)` copied to the host (every rank of the model
+    group must call it; at M = 1 it is a copy of the tree itself)."""
+    from autoprog_tpu_torch.parallel import tp
+    return {k: v.detach().to("cpu", copy=True) for k, v in tp.gather_local(tree).items()}
+
+
+def optimizer_by_name(state) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The optimizer's per-parameter tensors (moments, momentum buffers),
+    full and on the host, by parameter name (a collective over the model
+    group, as `gathered`)."""
+    from autoprog_tpu_torch.parallel import tp
+    names = tp._param_names(state.model, state.optimizer)
+    saved = tp.gather_optimizer_state(state.model, state.optimizer)
+    return {names[i]: {k: v.detach().to("cpu", copy=True) for k, v in st.items()
+                       if torch.is_tensor(v) and v.ndim}
+            for i, st in saved["state"].items()}
+
+
+#: what `leg_steps` records after each step
+RECORD = ("grads", "params", "opt", "ema")
+
+
+def leg_steps(state, sb, batches, *, img_size: int, bbox, lr: float = 1e-3,
+              splits: int = 1, sparse: bool = False, keys=RECORD):
+    """One train step per batch of `batches` on this process's rows of it,
+    with the MixToken box `bbox`, in `splits` micro-batches, with sparse
+    token-label targets (AUTOPROG_SPARSE_TL=1) where `sparse`. Per step:
+    the loss averaged over the ranks and, of `keys`, the gradients the
+    optimizer saw, the parameters, the optimizer state by name and the EMA
+    trees after the step, gathered over the model group and on the host
+    (every rank of the group must call this)."""
+    from autoprog_tpu_torch.parallel import mesh
+    steps, grads = [], {}
+    optimizer_step = state.optimizer.step
+
+    def record():
+        if "grads" in keys:
+            grads.update(gathered({n: p.grad for n, p in state.model.named_parameters()}))
+        optimizer_step()
+    state.optimizer.step = record
+    env = os.environ.get("AUTOPROG_SPARSE_TL")
+    os.environ["AUTOPROG_SPARSE_TL"] = "1" if sparse else "0"
+    try:
+        for batch in batches:
+            rows = mesh.process_batch_slice(batch["image"].shape[0])
+            m = sb.train_step(state, {k: v[rows] for k, v in batch.items()}, lr, r=img_size,
+                              bbox=bbox, splits=splits)
+            rec = {"loss": float(mesh.mean_over_ranks(m["loss"]))}
+            if "grads" in keys:
+                rec["grads"] = dict(grads)
+            if "params" in keys:
+                rec["params"] = gathered(state.params)
+            if "opt" in keys:
+                rec["opt"] = optimizer_by_name(state)
+            if "ema" in keys:
+                rec["ema"] = [gathered(e) for e in state.ema_params]
+            steps.append(rec)
+    finally:
+        state.optimizer.step = optimizer_step
+        if env is None:
+            del os.environ["AUTOPROG_SPARSE_TL"]
+        else:
+            os.environ["AUTOPROG_SPARSE_TL"] = env
+    return steps
+
+
+def bf16_steps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in bf16 steps, elementwise: the distance between the ordered
+    bit patterns of two bf16 tensors (0 where equal, 1 for neighbours)."""
+    def key(t):
+        v = t.contiguous().view(torch.int16).int()
+        return torch.where(v < 0, -(v & 0x7FFF), v)
+    return (key(a) - key(b)).abs()
+
+
+def bf16_spacing(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """The step of a float with `bits` significant bits at |x| (bf16: 8,
+    f32: 24): 2^(floor(log2 |x|) + 1 - bits), elementwise."""
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                       torch.frexp(x.float())[1] - bits)
+
+
+def mu_bf16_bounds(two, one, *, lr: float, eps: float, betas=(0.9, 0.999),
+                   atol: float = 1e-6) -> dict:
+    """Two AdamW steps with the first moment stored in bf16 (`--adam-mu-bf16`,
+    rounded to nearest), `leg_steps`' records at M = 2 (`two`) and of one
+    process (`one`), held element by element to the bounds that one flipped
+    rounding gives. Step 1 updates from the f32 moment; its stored m1 may
+    land on the other bf16 neighbour: |dm1| <= (1 - b1) |dg1| + one spacing
+    of m1. Step 2 starts from m1: m32 = (1 - b1) g2 + bf16(b1 m1) (the
+    product rounded in bf16, as optax does), so where m1 differs, |dm32| <=
+    dmu = b1 |dm1| + one spacing of b1 m1 beyond (1 - b1) |dg2| and the f32
+    roundings of (1 - b1) g2 (one f32 step at its size: the two terms can
+    cancel to far below it); the stored |dm2| <= that + one bf16 spacing of
+    m2; and the parameters
+    move apart by at most atol + lr dmu / (bc1 (sqrt(v2 / bc2) + eps)),
+    bc_t = 1 - b^t. Returns the counts of differing m1 and m2 elements,
+    the largest parameter difference and bound after step 2, and the
+    leaves beyond a bound."""
+    b1 = float(torch.tensor(betas[0], dtype=torch.bfloat16))
+    bc1, bc2 = 1 - betas[0] ** 2, 1 - betas[1] ** 2
+    out = {"m1": 0, "m2": 0, "elements": 0, "dp": 0.0, "bound": 0.0, "beyond": []}
+
+    def spacing(a, b):
+        return bf16_spacing(torch.maximum(a.float().abs(), b.float().abs()))
+    for k in one[1]["params"]:
+        m1g, m1w = two[0]["opt"][k]["exp_avg"], one[0]["opt"][k]["exp_avg"]
+        m2g, m2w = two[1]["opt"][k]["exp_avg"], one[1]["opt"][k]["exp_avg"]
+        if {m1g.dtype, m1w.dtype, m2g.dtype, m2w.dtype} != {torch.bfloat16}:
+            out["beyond"].append(f"{k}: exp_avg not bf16")
+            continue
+        dm1, dm2 = ((a.float() - b.float()).abs() for a, b in ((m1g, m1w), (m2g, m2w)))
+        dg1, dg2 = ((two[i]["grads"][k].float() - one[i]["grads"][k].float()).abs()
+                    for i in (0, 1))
+        dmu = torch.where(dm1 > 0, b1 * dm1 + spacing(b1 * m1g.float(), b1 * m1w.float()),
+                          0.0)
+        v2 = one[1]["opt"][k]["exp_avg_sq"].float()
+        bound = atol + lr * dmu / (bc1 * ((v2 / bc2).sqrt() + eps))
+        dp = (two[1]["params"][k] - one[1]["params"][k]).abs()
+        if not bool((dm1 <= (1 - betas[0]) * dg1 + spacing(m1g, m1w)).all()):
+            out["beyond"].append(f"{k}: m1")
+        g2 = torch.maximum(two[1]["grads"][k].abs(), one[1]["grads"][k].abs())
+        f32_g2 = bf16_spacing((1 - betas[0]) * g2, bits=24)
+        if not bool((dm2 <= dmu + (1 - betas[0]) * dg2 + f32_g2 + spacing(m2g, m2w)).all()):
+            out["beyond"].append(f"{k}: m2")
+        if not bool((dp <= bound).all()):
+            out["beyond"].append(f"{k}: parameters")
+        out["m1"] += int((dm1 > 0).sum())
+        out["m2"] += int((dm2 > 0).sum())
+        out["elements"] += dm1.numel()
+        out["dp"] = max(out["dp"], float(dp.max()))
+        out["bound"] = max(out["bound"], float(bound.max()))
+    return out
+
+
+def ema_bf16_steps(two, one) -> dict:
+    """bf16 EMA trees at M = 2 (`two`, a list of trees) against one
+    process's: the largest distance of an element in bf16 steps, the count
+    of differing elements and of all."""
+    out = {"max_steps": 0, "differ": 0, "elements": 0}
+    for g, w in zip(two, one):
+        for k in w:
+            if g[k].dtype != torch.bfloat16 or w[k].dtype != torch.bfloat16:
+                out["max_steps"] = float("inf")
+                continue
+            d = bf16_steps(g[k], w[k])
+            out["max_steps"] = max(out["max_steps"], int(d.max()))
+            out["differ"] += int((d > 0).sum())
+            out["elements"] += d.numel()
+    return out
 
 
 def _bias_every_rank(dense, x):

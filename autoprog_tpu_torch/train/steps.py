@@ -49,7 +49,7 @@ from autoprog_tpu_torch.data.token_label import (
 from autoprog_tpu_torch.ops.erase import normalize_uint8, random_erase
 from autoprog_tpu_torch.ops.interpolate import resize_bilinear
 from autoprog_tpu_torch.ops.rounding import cast_bf16_sr
-from autoprog_tpu_torch.parallel import mesh
+from autoprog_tpu_torch.parallel import mesh, tp
 from autoprog_tpu_torch.train.state import TrainState
 
 #: gradients the train step filled with zeros (parameters the forward did
@@ -200,7 +200,10 @@ class StepBuilder:
         """e = d * e + (1 - d) * p for every decay. A bf16 tree
         (`--model-ema-bf16`) accumulates in f32 and is stored by stochastic
         rounding, with a dither sweep of its own per decay and step (round to
-        nearest would freeze it)."""
+        nearest would freeze it). Under tensor parallelism a sharded leaf
+        reads its full leaf's dither at its own elements, so the gathered
+        tree is the one-process tree's rounding (`ops/rounding.py`)."""
+        m, count, specs = mesh.model_index(), mesh.model_count(), None
         for d, ema in zip(self.ema_decays, state.ema_params):
             e = list(ema.values())
             if e[0].dtype != torch.bfloat16:
@@ -211,7 +214,9 @@ class StepBuilder:
             torch._foreach_copy_(e32, e)
             torch._foreach_mul_(e32, d)
             torch._foreach_add_(e32, params, alpha=1.0 - d)
-            cast_bf16_sr(e32, self.ema_gen, out=e)
+            if specs is None and count > 1:
+                specs = [tp.param_spec(k, v.ndim) for k, v in ema.items()]
+            cast_bf16_sr(e32, self.ema_gen, out=e, specs=specs, m=m, count=count)
 
     @staticmethod
     def _eval_logits(state: TrainState, images: torch.Tensor, keep, params) -> torch.Tensor:

@@ -174,7 +174,17 @@ back to the CPU or to a plain twin):
      within tp_parity's limits and one bf16 step that runs K1 at head_dim
      48 in its 28 transformer layers; (e) `validate.py` over the two ranks
      on 70 images at -b 16 against one process: top-1 and top-5 equal, the
-     loss within 1e-5;
+     loss within 1e-5; (f) the step's options on volo_d4's widths (768, 16
+     heads; `volod4_h16_l4`, its depth cut to 2 outlookers and 2
+     transformers) at 224 px and global batch 8, two composite legs of 2
+     f32 steps against one process: leg A `--opt sgd`, `--batch-splits 2`,
+     `--remat dots`, drop-path 0.1 and sparse token labels, leg B AdamW
+     (eps 1e-3) with `--adam-mu-bf16` and `--model-ema-bf16`; each step's
+     loss and gradients within tp_parity's limits, the parameters within
+     1e-6 (leg B's after step 2, its bf16 moments and EMA trees within the
+     bounds of `tp_parity.mu_bf16_bounds` and one bf16 step), then one bf16
+     step of each leg (finite); K1 launched on 8 local heads at head_dim 48
+     and K2 on its row kernels, counted on the main path;
  13. the measurement scripts (`autoprog_tpu_torch/scripts/`), each run as a
      user runs it, in a process of its own, its last stdout line parsed:
      `bench_roofline 128` (every row and segment counts FLOP and bytes, none
@@ -203,7 +213,7 @@ back to the CPU or to a plain twin):
 
 The line before the last is the kernel report (JSON): for each kernel its
 launches on its path (K1 and K2: phases 4 to 6 and 9 to 12, both ranks of
-phase 11 (b) and of phase 12 (c) counted, and apart from them, under
+phase 11 (b) and of phase 12 (c) and (f) counted, and apart from them, under
 `script_launches`, phase 13's and phase 14's scripts by name; K1's rows per shape: phases
 4 to 7 at that shape; `loop_img1`: its timing run of phase 8; K3, K4: the
 variants run of phase 8 and phase 13's outlook rows; K5 and the MHSA
@@ -2116,6 +2126,18 @@ TP_PROG_CUTS = {"-b": 16, "--fake-data-size": 2, "--search-probe-steps": 1,
                 "--search-time-iters": 1}
 TP_VALIDATE = ["synthetic://", "--num-classes", "1000", "--img-size", "224", "-b", "16",
                "--workers", "0", "--fake-data-size", "70", "--no-bf16"]
+#: phase 12 (f): volo_d4's widths at depth 4 (2 outlookers at 384 on 12 heads,
+#: 2 transformers at 768 on 16), two legs of options with what each records
+#: per f32 step, and their launches per step and rank (K1 on a transformer
+#: layer, K2 on an outlooker; leg A: 2 micro-batches, and `--remat dots`
+#: runs each forward again in the backward)
+TP_LEG_MODEL = "volod4_h16_l4"
+TP_LEG_STEPS = 2
+TP_LEGS = {"A": dict(opt="sgd", splits=2, remat="dots", drop_path=0.1, sparse=True,
+                     keys=("grads", "params")),
+           "B": dict(mu_bf16=True, ema_bf16=True, opt_eps=1e-3,
+                     keys=("grads", "params", "opt", "ema"))}
+TP_LEG_LAUNCHES = {"A": {"fwd": 2 * 2 * 2, "bwd": 2 * 2}, "B": {"fwd": 2, "bwd": 2}}
 
 
 def _replicated_digest(state) -> str:
@@ -2162,8 +2184,77 @@ def _same_file_state(torch, ctx, ck) -> list:
     return bad
 
 
+def _tp_leg(torch, leg: str, dtype, steps: int):
+    """Phase 12 (f): `steps` of leg `leg` of TP_LEGS on TP_LEG_MODEL at b=8
+    (`dp_parity.setup`'s parameters and batch under the leg's options),
+    recorded by `tp_parity.leg_steps` (in f32 what the leg keeps, gathered
+    over the model group; in bf16 the loss)."""
+    from autoprog_tpu_torch.scripts import dp_parity, tp_parity
+    opts = dict(TP_LEGS[leg])
+    splits, sparse, keys = opts.pop("splits", 1), opts.pop("sparse", False), opts.pop("keys")
+    state, sb, data = dp_parity.setup(8, dtype, model=TP_LEG_MODEL,
+                                      bias_std=tp_parity.BIAS_STD, **opts)
+    rec = tp_parity.leg_steps(state, sb, [data] * steps, img_size=224,
+                              bbox=dp_parity.box(224), splits=splits, sparse=sparse,
+                              keys=keys if dtype == torch.float32 else ())
+    del state, sb, data
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _check_tp_legs(two, ref, res, ref_f_s) -> None:
+    """Phase 12 (f): each leg's records at M = 2 (rank 0's, `two`) against
+    this process's (`ref`), and each rank's bf16 losses and launches
+    (`res`); prints a line a leg and a rank and fails beyond a limit."""
+    from autoprog_tpu_torch.scripts import tp_parity
+    for leg in TP_LEGS:
+        got, want = two["f_" + leg], ref["f_" + leg]
+        rows = [tp_parity.compare(g["loss"], g["grads"], w["loss"], w["grads"], leg, step)
+                for step, (g, w) in enumerate(zip(got, want))]
+        fam = " | ".join(f"step {r['seed'] + 1}: loss rel {r['loss_rel']:.2e}, all "
+                         f"{r['grad_total']:.2e}, " +
+                         ", ".join(f"{f} {r['worst'][f][1]:.2e}" for f in tp_parity.FAMILIES)
+                         for r in rows)
+        at = len(got) - 1 if leg == "A" else 0     # leg B's bf16 moment: after step 1
+        dp = max(float((got[at]["params"][k] - w).abs().max())
+                 for k, w in want[at]["params"].items())
+        line = (f"phase 12 (f) leg {leg} {TP_LEGS[leg]} on {TP_LEG_MODEL} at 224 px, global "
+                f"batch 8, {len(got)} f32 steps, M=2 against one process, worst per leaf "
+                f"family: {fam}; parameters after step {at + 1} within {dp:.2e} (tol 1e-6)")
+        bad = [r["seed"] + 1 for r in rows if not r["within"]]
+        if leg == "B":
+            mu = tp_parity.mu_bf16_bounds(got, want, lr=1e-3, eps=1e-3)
+            ema = tp_parity.ema_bf16_steps(got[-1]["ema"], want[-1]["ema"])
+            line += (f"; bf16 first moment: {mu['m1']} / {mu['m2']} of {mu['elements']} "
+                     f"elements differ after steps 1 / 2, parameters after step 2 within "
+                     f"{mu['dp']:.2e} (per-element bound at most {mu['bound']:.2e}, beyond it: "
+                     f"{mu['beyond']}); bf16 EMA (4 trees): {ema['differ']} of "
+                     f"{ema['elements']} elements differ, at most {ema['max_steps']} bf16 "
+                     f"step")
+            if mu["beyond"] or ema["max_steps"] > 1:
+                bad.append("bf16 states")
+        say(line)
+        if bad or dp > 1e-6:
+            fail(f"phase 12 (f) leg {leg} under --model-parallel 2 is beyond its limits: "
+                 f"{bad}, parameters {dp:.2e}")
+    n = TP_LEG_STEPS + 1
+    want_k = {s: n * sum(c[s] for c in TP_LEG_LAUNCHES.values()) for s in ("fwd", "bwd")}
+    for r in res:
+        say(f"phase 12 (f) rank {r['rank']}: {r['f_s']:.1f} s for both legs' f32 and bf16 "
+            f"steps (this process's references: {ref_f_s:.1f} s); bf16 losses "
+            f"{r['f_bf16_loss']}; K1 {r['f_k1']} by (side, tokens, heads, head_dim) "
+            f"{r['f_k1_shapes']}, K2 {r['f_k2']}, routes {r['f_k2_routes']}")
+        if not all(math.isfinite(v) for v in r["f_bf16_loss"].values()):
+            fail("phase 12 (f): a bf16 step of the options is not finite")
+        if r["f_k1_shapes"] != {f"{s} 196 8 48": want_k[s] for s in ("fwd", "bwd")} or \
+                r["f_k2_routes"] != {"fwd_rows": want_k["fwd"], "fwd_general": 0,
+                                     "bwd_rows": want_k["bwd"], "bwd_general": 0}:
+            fail(f"phase 12 (f): K1 not on 8 local heads at head_dim 48 or K2 not on its row "
+                 f"kernels as often as the legs' layers ask ({want_k} a side)")
+
+
 def _tp_steps(torch, res, saved) -> None:
-    """Phase 12 (a), (b) and (d) on this rank (see `tp_worker`)."""
+    """Phase 12 (a), (b), (d) and (f) on this rank (see `tp_worker`)."""
     from autoprog_tpu_torch.ops import attention as A
     from autoprog_tpu_torch.ops import outlook_fused as O
     from autoprog_tpu_torch.scripts import dp_parity, tp_parity
@@ -2219,6 +2310,38 @@ def _tp_steps(torch, res, saved) -> None:
     state, sb, data = dp_parity.setup(8, torch.bfloat16, model="volo_d4")
     res["d4_bf16_loss"] = dp_parity.dp_step(state, sb, data)[0]
     res["d4_k1_shapes"] = {" ".join(map(str, k)): c for k, c in A.SHAPE_LAUNCHES.items()}
+    del state, sb, data
+    torch.cuda.empty_cache()
+
+    # (f) the step's options on volo_d4's widths
+    _tp_legs(torch, res, saved)
+
+
+def _tp_legs(torch, res, saved) -> None:
+    """Phase 12 (f) on this rank: each leg's f32 steps (their records into
+    `saved`), then one bf16 step; the launches of all of them are (f)'s on
+    the main path (into `res`)."""
+    from autoprog_tpu_torch.ops import attention as A
+    from autoprog_tpu_torch.ops import outlook_fused as O
+    for counts in (A.LAUNCHES, O.LAUNCHES, O.ROUTES):
+        for k in counts:
+            counts[k] = 0
+    A.SHAPE_LAUNCHES.clear()
+    t0 = time.time()
+    res["f_bf16_loss"] = {}
+    for leg in TP_LEGS:
+        rec = _tp_leg(torch, leg, torch.float32, TP_LEG_STEPS)
+        for step in rec:       # what `_check_tp_legs` reads: the last EMA trees, no nu
+            if step is not rec[-1]:
+                step.pop("ema", None)
+            for st in step.get("opt", {}).values():
+                st.pop("exp_avg_sq", None)
+        saved["f_" + leg] = rec
+        res["f_bf16_loss"][leg] = _tp_leg(torch, leg, torch.bfloat16, 1)[0]["loss"]
+    torch.cuda.synchronize()
+    res.update(f_s=time.time() - t0, f_k1=dict(A.LAUNCHES), f_k2=dict(O.LAUNCHES),
+               f_k2_routes=dict(O.ROUTES),
+               f_k1_shapes={" ".join(map(str, k)): c for k, c in A.SHAPE_LAUNCHES.items()})
 
 
 def _tp_trainer(torch, out_dir, rank, res) -> None:
@@ -2287,7 +2410,7 @@ def tp_worker(out_dir: str, role: str) -> None:
     """One rank of phase 12, started by `phase_tensor_parallel` with
     torchrun's environment, gloo and AUTOPROG_TORCH_DEVICE=cuda:0, on a
     (data 1 x model 2) grid. Two such worlds run side by side: role `steps`
-    takes (a), (b) and (d), role `trainer` (c) and (e). Writes
+    takes (a), (b), (d) and (f), role `trainer` (c) and (e). Writes
     <role><r>.json and rank 0's tensors to `out_dir`."""
     import torch
     from autoprog_tpu_torch.parallel import mesh
@@ -2297,6 +2420,7 @@ def tp_worker(out_dir: str, role: str) -> None:
         fail("the worker found no torchrun environment")
     mesh.init_grid(2)
     rank = mesh.process_index()
+    t0 = time.time()
     res = {"rank": rank, "grid": [mesh.data_count(), mesh.model_count()],
            "backend": torch.distributed.get_backend(),
            "device": str(torch.device("cuda", torch.cuda.current_device()))}
@@ -2307,6 +2431,7 @@ def tp_worker(out_dir: str, role: str) -> None:
             torch.save(saved, os.path.join(out_dir, "steps0.pt"))
     else:
         _tp_trainer(torch, out_dir, rank, res)
+    res["wall_s"] = time.time() - t0
     with open(os.path.join(out_dir, f"{role}{rank}.json"), "w") as f:
         json.dump(res, f, default=float)
     mesh.destroy()
@@ -2325,8 +2450,8 @@ def _ckpt_layout(ck) -> dict:
 def phase_tensor_parallel(torch, card, prog_run, prog_argv):
     """Phase 12: `--model-parallel 2` (`parallel/tp.py`) as two worlds of two
     gloo ranks each, side by side on cuda:0 (`tp_worker`: the steps of (a),
-    (b), (d) and the trainer of (c), (e)), against this process on the same
-    card. Returns the K1 and K2 launches of (c) on both ranks."""
+    (b), (d), (f) and the trainer of (c), (e)), against this process on the same
+    card. Returns the K1 and K2 launches of (c) and (f) on both ranks."""
     from autoprog_tpu_torch import main_prog, validate
     from autoprog_tpu_torch.scripts import dp_parity, tp_parity
     from autoprog_tpu_torch.train.checkpoint import load_checkpoint_file
@@ -2376,6 +2501,11 @@ def phase_tensor_parallel(torch, card, prog_run, prog_argv):
         ref["d4"] = (loss, {k: v.cpu() for k, v in grads.items()})
         del state, sb, data, grads
         torch.cuda.empty_cache()
+        t_f = time.time()
+        for leg in TP_LEGS:
+            ref["f_" + leg] = _tp_leg(torch, leg, torch.float32, TP_LEG_STEPS)
+        torch.cuda.synchronize()
+        ref_f_s = time.time() - t_f
 
         # (c, e) at M = 1 once the trainer's checkpoints are whole, while its
         # ranks resume at M = 2
@@ -2490,6 +2620,11 @@ def phase_tensor_parallel(torch, card, prog_run, prog_argv):
         fail("the volo_d4 bf16 step did not run K1 at head_dim 48 in its 28 transformer "
              "layers")
 
+    # (f) the step's options on volo_d4's widths
+    _check_tp_legs(two, ref, res, ref_f_s)
+    say(f"phase 12 (f) worker walls: steps {[r['wall_s'] for r in res]}, trainer "
+        f"{[r['wall_s'] for r in tr]} s")
+
     # (c) the progressive trainer and its checkpoint, resumed at M = 2 and M = 1
     r0, r1 = tr
     log = open(glob.glob(os.path.join(out, "out0", "train", "*", "log.txt"))[0]).read()
@@ -2535,8 +2670,10 @@ def phase_tensor_parallel(torch, card, prog_run, prog_argv):
                 abs(v["loss"] - one_v["loss"]) > 1e-5 * abs(one_v["loss"]):
             fail("validate.py over two ranks does not equal one process")
     say(f"phase 12: {time.time() - t_phase:.1f} s")
-    k1 = {s: r0["prog_k1"][s] + r1["prog_k1"][s] for s in ("fwd", "bwd")}
-    k2 = {s: r0["prog_k2"][s] + r1["prog_k2"][s] for s in ("fwd", "bwd")}
+    k1 = {s: sum(r["prog_k1"][s] for r in tr) + sum(r["f_k1"][s] for r in res)
+          for s in ("fwd", "bwd")}
+    k2 = {s: sum(r["prog_k2"][s] for r in tr) + sum(r["f_k2"][s] for r in res)
+          for s in ("fwd", "bwd")}
     return k1, k2
 
 

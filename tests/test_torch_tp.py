@@ -22,15 +22,31 @@ group, lay out the (data, model) grid with M = 2 and write what they saw to
   (h) one f32 step of deit_h2_l2 (built with attn_drop_rate > 0) and one of
       volo_h4_l4, each with dropout on the attention probabilities, the
       class attention and the MLPs' hidden units (the sharded dropout sites),
-      recording the masks each rank drew there.
+      recording the masks each rank drew there;
+  (i) two steps of (a)'s model from seeded parameters under `--opt sgd` and
+      `--opt momentum`, and (a)'s step under `--opt sgd`;
+  (j) two AdamW steps with `--adam-mu-bf16`, their state saved by rank 0 and
+      resumed at M = 2 through `engine.resume_from`;
+  (k) two AdamW steps with one bf16 EMA tree (`--model-ema-bf16`), and
+      `StepBuilder._update_ema` alone on bf16 trees from the same f32
+      parameters in every process;
+  (l) two steps under `--batch-splits 2`, `--remat dots` with drop-path 0.1,
+      AUTOPROG_SPARSE_TL=1 and `--drop 0.1`, one option at a time;
+  (m) `main.main --aug-splits 3 --jsd` for 2 epochs and `main_prog.main
+      --recal-bn-steps 2` through a depth growth.
 
 Four ranks (data 2 x model 2) run (a) on their data group's half of the
 batch. The test process meanwhile runs the JAX step on the virtual 8-device
 mesh with `make_mesh(model_parallel=2)` and `shard_state_tp`, as
-tests/test_tp.py does, and the one-process references of (c) to (h). The
-tolerances are those of tests/test_torch_dist.py: loss rel 1e-5; gradients
-rtol 1e-4 / atol 1e-5; parameters and EMA trees atol 1e-6. Each worker has
-one intra-op thread and its own timeout.
+tests/test_tp.py does (under AdamW and SGD), and the one-process references
+of (c) to (m). The tolerances are those of tests/test_torch_dist.py: loss rel
+1e-5; gradients rtol 1e-4 / atol 1e-5; parameters and EMA trees atol 1e-6.
+Where a leg states its own bound, its test derives it: the stem's gradients
+from the second step on (`_hold_grads`), the bf16 first moment
+(`tp_parity.mu_bf16_bounds`) and the bf16 EMA (one bf16 step). Each worker
+has one intra-op thread and its own timeout. The legs (i) to (m) alone:
+`python -m pytest tests/test_torch_tp.py -k "sgd or bf16 or option or jsd or
+recal or dither"` (the workers run every case once for the module).
 """
 
 import argparse
@@ -74,6 +90,27 @@ JAX_RESUME_ARGV = ["synthetic://", "--model", MODEL, "--num-classes", str(NC),
                    "--img-size", str(IMG), "-b", str(B), "--workers", "0", "--no-bf16",
                    "--token-label", "--token-label-data", "synthetic", "--model-ema",
                    "--model-ema-decay", *map(str, DECAYS)]
+#: (i) to (l): train steps a leg, the fixed MixToken box, the options of (l)
+LEG_STEPS = 2
+BBOX = torch.tensor([1, 1, 3, 2])
+SGD_OPTS = ("sgd", "momentum")
+OPTION_LEGS = {"batch_splits": dict(splits=2), "remat_dots": dict(remat="dots", drop_path=0.1),
+               "sparse_tl": dict(sparse=True), "drop": dict(drop=0.1)}
+#: (k): the decay of the trained bf16 EMA, and those of `_update_ema` alone
+EMA_BF16 = (0.99,)
+EMA_ROUND = (0.99, 0.9)
+MU_RESUME_ARGV = JAX_RESUME_ARGV[:JAX_RESUME_ARGV.index("--model-ema")] + ["--adam-mu-bf16"]
+#: (m): the fixed trainer with JSD over 3 aug splits, and the progressive
+#: trainer with BatchNorm recalibration at its depth growth (l 2 -> 4)
+MAIN_ARGV = ["synthetic://", "--model", MODEL, "--num-classes", "10", "--img-size", "32",
+             "-b", "32", "--epochs", "2", "--warmup-epochs", "1", "--cooldown-epochs", "0",
+             "--workers", "0", "--fake-data-size", "64", "--no-bf16", "--drop-path", "0.0",
+             "--seed", "11", "--aug-splits", "3", "--jsd"]
+RECAL_ARGV = ["synthetic://", "--model", MODEL, "--num-classes", "10", "--img-size", "32",
+              "-b", "32", "--epochs", "2", "--warmup-epochs", "1", "--cooldown-epochs", "0",
+              "--workers", "0", "--fake-data-size", "64", "--no-bf16", "--num-stages", "2",
+              "--r-scale", "1.0", "--l-scale", "0.5", "--drop-path", "0.0", "--seed", "11",
+              "--recal-bn-steps", "2"]
 
 
 def _save(path, trees):
@@ -87,7 +124,8 @@ def _tree(npz, prefix):
 
 
 def build(model, full, buffers, *, args, dtype=torch.float32, img=IMG, nc=NC, remat="",
-          drop_path=0.0, ema=DECAYS, token_label=True, attn_drop=0.0):
+          drop_path=0.0, ema=DECAYS, token_label=True, attn_drop=0.0, drop=0.0,
+          ema_dtype=None):
     """The model's state and step builder on this rank: the full parameters
     `full` (and `buffers`), sharded under the grid."""
     from autoprog_tpu_torch import create_model
@@ -98,10 +136,10 @@ def build(model, full, buffers, *, args, dtype=torch.float32, img=IMG, nc=NC, re
     from autoprog_tpu_torch.train.steps import StepBuilder
     net = create_model(model).make(num_classes=nc, img_size=img, dtype=dtype, remat=remat,
                                    drop_path_rate=drop_path, attn_drop_rate=attn_drop,
-                                   model_parallel=mesh.model_count())
+                                   drop_rate=drop, model_parallel=mesh.model_count())
     tp.load_shards(net, full, buffers)
     state = TrainState.create(model=net, optimizer=create_optimizer(args, net),
-                              ema_decays=ema)
+                              ema_decays=ema, ema_dtype=ema_dtype)
     sb = StepBuilder(train_loss=build_train_loss(args), ema_decays=ema, num_classes=nc,
                      token_label=token_label, has_token_label_data=token_label,
                      grad_clip=create_grad_clip(args), seed=3, rank=mesh.data_index())
@@ -226,6 +264,143 @@ def trainer_losses(run_dir, epoch=None):
     return [float(v) for e, v in re.findall(pat, log) if epoch is None or int(e) == epoch]
 
 
+def opt_args(opt="adamw", mu_bf16=False):
+    return argparse.Namespace(**dict(vars(step_args()), opt=opt, adam_mu_bf16=mu_bf16))
+
+
+def leg(opt="adamw", *, mu_bf16=False, ema=(), ema_bf16=False, remat="", drop_path=0.0,
+        drop=0.0, splits=1, sparse=False):
+    """LEG_STEPS train steps of (a)'s model from seeded parameters on
+    make_batch(step)'s rows with the fixed box, under one set of options
+    (`tp_parity.leg_steps`: each step's loss, gradients, parameters,
+    optimizer state and EMA trees, gathered), and the EMA trees as this rank
+    holds them after the last. Returns (that record, the state)."""
+    from autoprog_tpu_torch.scripts import tp_parity
+    full, buffers = seeded(MODEL, img=IMG, nc=NC)
+    state, sb = build(MODEL, full, buffers, args=opt_args(opt, mu_bf16), remat=remat,
+                      drop_path=drop_path, drop=drop, ema=ema,
+                      ema_dtype=torch.bfloat16 if ema_bf16 else None)
+    batches = [{k: torch.from_numpy(v) for k, v in make_batch(i).items()}
+               for i in range(LEG_STEPS)]
+    steps = tp_parity.leg_steps(state, sb, batches, img_size=IMG, bbox=BBOX, lr=LR,
+                                splits=splits, sparse=sparse)
+    local = [{k: v.clone() for k, v in e.items()} for e in state.ema_params]
+    return {"steps": steps, "ema_local": local}, state
+
+
+def ema_round():
+    """`StepBuilder._update_ema` alone on bf16 trees (decays EMA_ROUND),
+    twice, towards the same f32 parameters in every process: seeded ones
+    moved by a numpy draw of N(0, 0.01), this rank's shards of them. The
+    trees after each sweep, gathered."""
+    from autoprog_tpu_torch.parallel import tp
+    from autoprog_tpu_torch.scripts.tp_parity import gathered
+    full, buffers = seeded(MODEL, img=IMG, nc=NC)
+    state, sb = build(MODEL, full, buffers, args=step_args(), ema=EMA_ROUND,
+                      ema_dtype=torch.bfloat16)
+    rs = np.random.default_rng(6)
+    target = {k: v + torch.from_numpy(rs.normal(0, 0.01, v.shape).astype(np.float32))
+              for k, v in full.items()}
+    shards = tp.shard_tree(target)
+    params = [shards[n] for n, _ in state.model.named_parameters()]
+    out = []
+    for _ in range(2):
+        sb._update_ema(state, params)
+        out.append([gathered(e) for e in state.ema_params])
+    return out
+
+
+def run_legs():
+    """(i) to (l) in this process: the records of `leg` by name (and of
+    `ema_round`), and the state of (j)'s leg for its checkpoint."""
+    legs = {opt: leg(opt)[0] for opt in SGD_OPTS}
+    legs["mu_bf16"], mu_state = leg(mu_bf16=True)
+    legs["ema_bf16"] = leg(ema=EMA_BF16, ema_bf16=True)[0]
+    legs["ema_round"] = ema_round()
+    for name, kw in OPTION_LEGS.items():
+        legs[name] = leg(**kw)[0]
+    return legs, mu_state
+
+
+class recorded_losses:
+    """Every train step's loss (a float), while the context is open."""
+
+    def __enter__(self):
+        from autoprog_tpu_torch.train.steps import StepBuilder
+        self.losses, self.step = [], StepBuilder.train_step
+        step, losses = self.step, self.losses
+
+        def train_step(sb, *a, **kw):
+            out = step(sb, *a, **kw)
+            losses.append(float(out["loss"]))
+            return out
+        StepBuilder.train_step = train_step
+        return self.losses
+
+    def __exit__(self, *exc):
+        from autoprog_tpu_torch.train.steps import StepBuilder
+        StepBuilder.train_step = self.step
+
+
+def jsd_run(run_dir, extra=()):
+    """`main.main` with `--aug-splits 3 --jsd` (MAIN_ARGV): every step's
+    loss."""
+    from autoprog_tpu_torch import main
+    with recorded_losses() as losses:
+        main.main(MAIN_ARGV + list(extra) + ["--output", run_dir])
+    return list(losses)
+
+
+def recal_run(run_dir, extra=()):
+    """`main_prog.main` with `--recal-bn-steps 2` through a depth-growth
+    boundary (RECAL_ARGV): the BatchNorm buffers right after each
+    recalibration and at the end, the stage history and every loss."""
+    from autoprog_tpu_torch import main_prog
+    from autoprog_tpu_torch.train import bn
+    after = []
+    recal = bn.recalibrate_bn
+
+    def recorded(ctx, *a, **kw):
+        recal(ctx, *a, **kw)
+        after.append({n: b.detach().clone() for n, b in ctx.state.model.named_buffers()})
+    bn.recalibrate_bn = recorded
+    try:
+        with recorded_losses() as losses:
+            main_prog.main(RECAL_ARGV + list(extra) + ["--output", run_dir])
+    finally:
+        bn.recalibrate_bn = recal
+    ctx = main_prog.LAST_CTX
+    return {"recal": after, "final": {n: b.detach().clone()
+                                      for n, b in ctx.state.model.named_buffers()},
+            "history": [[h["r"], h["l"]] for h in ctx.stage_history], "loss": list(losses)}
+
+
+def mu_resume(path):
+    """The checkpoint at `path` resumed through `engine.resume_from` under
+    this process's grid with `--adam-mu-bf16`: the names of the parameters
+    and optimizer tensors whose gathered values differ from the file's in
+    bits or dtype, and the dtypes of the first moment as this rank holds it."""
+    from autoprog_tpu_torch import engine
+    from autoprog_tpu_torch.config import parse_args
+    from autoprog_tpu_torch.parallel import mesh
+    from autoprog_tpu_torch.train.checkpoint import build_payload, load_checkpoint_file
+    extra = ["--model-parallel", str(mesh.model_count())] if mesh.model_count() > 1 else []
+    args, text = parse_args(MU_RESUME_ARGV + extra, prog=False)
+    ctx = engine.setup(args, text)
+    want = load_checkpoint_file(path)
+    engine.resume_from(ctx, want)
+    got = build_payload(state=ctx.state, args_text="", arch_name=MODEL, stage_info={})
+    differ = [n for n, t in want["state_dict"].items()
+              if not torch.equal(got["state_dict"][n], t)]
+    for i, st in want["optimizer"]["state"].items():
+        for k, v in st.items():
+            g = got["optimizer"]["state"][i][k]
+            if g.dtype != v.dtype or not torch.equal(g, v):
+                differ.append(f"opt.{i}.{k}")
+    local = {str(st["exp_avg"].dtype) for st in ctx.state.optimizer.state.values()}
+    return {"differ": differ, "local_mu_dtypes": sorted(local), "step": ctx.state.step}
+
+
 # ------------------------------------------------------------------ worker
 
 
@@ -235,7 +410,9 @@ def worker(out_dir: str) -> None:
     from autoprog_tpu_torch.config import parse_args
     from autoprog_tpu_torch.parallel import mesh, tp
     from autoprog_tpu_torch.prog import autogrow
-    from autoprog_tpu_torch.train.checkpoint import load_checkpoint_file
+    from autoprog_tpu_torch.scripts import tp_parity
+    from autoprog_tpu_torch.train.checkpoint import (
+        build_payload, load_checkpoint_file, save_checkpoint_file)
     assert mesh.maybe_init_distributed()
     mesh.init_grid(2)
     rank, world = mesh.process_index(), mesh.process_count()
@@ -324,6 +501,33 @@ def worker(out_dir: str) -> None:
         res["dropout_loss"][model] = loss
         _save(out(f"dropout_{model}_"), {"g": grads})
         np.savez(out(f"masks_{model}_"), *masks)
+
+    # (i) SGD and momentum; (j) the bf16 first moment and its checkpoint;
+    # (k) the bf16 EMA, alone and in the step; (l) one option at a time
+    t_legs = time.time()
+    legs, mu_state = run_legs()
+    state, sb = build(MODEL, params, buffers, args=opt_args("sgd"), ema=())   # (a)'s inputs
+    legs["sgd_jax"] = tp_parity.leg_steps(state, sb, [batch], img_size=IMG, lr=LR,
+                                          bbox=torch.from_numpy(inp["bbox"]),
+                                          keys=("params", "opt"))[0]
+    del state, sb
+    mu_path = os.path.join(out_dir, "mu_bf16.ckpt")
+    payload = build_payload(state=mu_state, args_text="", arch_name=MODEL, stage_info={})
+    if rank == 0:
+        save_checkpoint_file(mu_path, dict(payload, epoch=0))
+    mesh.barrier("mu_bf16.ckpt")
+    res["mu_resume"] = mu_resume(mu_path)
+    del mu_state, payload
+    torch.save(legs, os.path.join(out_dir, f"legs{rank}.pt"))
+    res["legs_s"] = time.time() - t_legs
+
+    # (m) the trainers: JSD over aug splits, BatchNorm recalibration
+    t_trainers = time.time()
+    res["jsd_loss"] = jsd_run(os.path.join(out_dir, f"jsd{rank}"), ["--model-parallel", "2"])
+    recal = recal_run(os.path.join(out_dir, f"recal{rank}"), ["--model-parallel", "2"])
+    res["recal_history"], res["recal_loss"] = recal.pop("history"), recal.pop("loss")
+    torch.save(recal, os.path.join(out_dir, f"recal{rank}.pt"))
+    res["trainers_s"] = time.time() - t_trainers
 
     # (f) the progressive trainer, then a resume at M = 2
     decisions = []
@@ -426,7 +630,7 @@ def _jax_inputs(out_dir):
     arrays.update({"b." + k: v for k, v in batch.items()})
     np.savez(os.path.join(out_dir, "step_in.npz"), bbox=np.asarray(out[2]), **arrays)
     return dict(jsb=jsb, tx=tx, params=params, bs=bs, batch=batch, jbatch=jbatch, rng=rng,
-                step_rng=step_rng)
+                step_rng=step_rng, jmodel=jmodel)
 
 
 def _jax_tp_step(j, out_dir):
@@ -459,6 +663,38 @@ def _jax_tp_step(j, out_dir):
     return dict(loss=float(jloss), grads=jgrads, new=jnew)
 
 
+def _jax_sgd_tp_step(j, out_dir):
+    """(a)'s step with `--opt sgd` in the JAX package on the (4 data x 2
+    model) mesh with `shard_state_tp`'s shardings: its state in the port's
+    names (parameters and the Nesterov trace), through the JAX package's
+    checkpoint file (jax_sgd.ckpt)."""
+    import jax
+    from autoprog_tpu.losses import build_train_loss as jax_build_train_loss
+    from autoprog_tpu.parallel.mesh import make_mesh, replicate, shard_batch
+    from autoprog_tpu.parallel.tp import shard_state_tp
+    from autoprog_tpu.train import checkpoint as jax_ckpt
+    from autoprog_tpu.train import optim as joptim
+    from autoprog_tpu.train.state import TrainState as JaxTrainState
+    from autoprog_tpu.train.steps import StepBuilder as JaxStepBuilder
+    from autoprog_tpu_torch.train.checkpoint import load_checkpoint_file
+    args = opt_args("sgd")
+    tx = joptim.create_optimizer(args, j["params"])
+    jsb = JaxStepBuilder(model=j["jmodel"], tx=tx, train_loss=jax_build_train_loss(args),
+                         ema_decays=(), num_classes=NC, token_label=True,
+                         has_token_label_data=True, donate=False)
+    mesh = make_mesh(model_parallel=2)
+    state = JaxTrainState.create(params=j["params"], batch_stats=j["bs"], tx=tx, ema_decays=())
+    state = shard_state_tp(mesh, replicate(mesh, state))
+    batch = shard_batch(mesh, {k: jax.numpy.asarray(v) for k, v in j["batch"].items()})
+    jnew, _ = jsb.train_step(r=IMG)(state, batch, LR, j["rng"])
+    path = os.path.join(out_dir, "jax_sgd.ckpt")
+    payload = jax_ckpt.build_payload(state=jnew, args_text="", arch_name=MODEL,
+                                     stage_info={}, ema_decays=())
+    jax_ckpt.save_checkpoint_file(path, dict(payload, epoch=0))
+    ck = load_checkpoint_file(path)
+    return {"params": ck["state_dict"], "trace": ck["optimizer"]["momentum_buffer"]}
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Both runs' results (2 and 4 ranks), the JAX step computed while they
@@ -482,9 +718,13 @@ def _run_ranks(tmp_path_factory):
             os.link(os.path.join(dirs[2], "step_in.npz"), os.path.join(d, "step_in.npz"))
     procs = {n: _spawn(d, n) for n, d in dirs.items()}
     jax_out = _jax_tp_step(j, dirs[2])
+    jax_out["sgd"] = _jax_sgd_tp_step(j, dirs[2])
     ref = {"clip": {mode: clip_step(mode) for mode in CLIPS}, "grown": grow(GROW_ARGV)[1],
-           "dropout": {model: dropout_step(model)[:2] for model in DROP_MODELS}}
+           "dropout": {model: dropout_step(model)[:2] for model in DROP_MODELS},
+           "legs": run_legs()[0], "jsd": jsd_run(os.path.join(dirs[2], "jsd_one")),
+           "recal": recal_run(os.path.join(dirs[2], "recal_one"))}
     res = {n: _wait(procs[n], d) for n, d in dirs.items()}
+    ref["mu_resume"] = mu_resume(os.path.join(dirs[2], "mu_bf16.ckpt"))
     ckpt = glob.glob(os.path.join(dirs[2], "out0", "train", "*", "checkpoint-1.ckpt"))[0]
     one = os.path.join(dirs[2], "resume_one")
     main_prog.main(TRAINER_ARGV + ["--resume", ckpt, "--output", one])
@@ -871,6 +1111,284 @@ def test_parity_limits_catch_planted_faults(tmp_path):
         assert not rows[plant]["within"], plant
         assert rows[plant]["grad_total"] > 100 * tp_parity.RTOL_ALL, plant
         assert rows[plant]["loss_rel"] > tp_parity.RTOL_LOSS, plant
+
+
+
+# ------------------------------------------- the options under TP: (i) to (m)
+
+
+@pytest.fixture(scope="module")
+def legs(ranks):
+    """The workers' records of (i) to (l), rank 0's and rank 1's, and one
+    process's."""
+    d = ranks["dirs"][2]
+    two = [torch.load(os.path.join(d, f"legs{r}.pt")) for r in (0, 1)]
+    return two, ranks["ref"]["legs"]
+
+
+def _bit_equal(a, b, where=()):
+    """Two records (dicts, lists, tensors, floats) the same bit for bit."""
+    if isinstance(a, dict):
+        assert sorted(a) == sorted(b), where
+        for k in a:
+            _bit_equal(a[k], b[k], where + (k,))
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _bit_equal(x, y, where + (i,))
+    elif torch.is_tensor(a):
+        assert a.dtype == b.dtype and torch.equal(a, b), where
+    else:
+        assert a == b, where
+
+
+def _same_on_both(two, key):
+    """The record `key` of the two ranks, which must be the same bit for
+    bit (a gather gives every rank the same full tensors); `ema_local`, each
+    rank's own shards, is left out."""
+    a, b = two[0][key], two[1][key]
+    if isinstance(a, dict):
+        a, b = ({k: v for k, v in r.items() if k != "ema_local"} for r in (a, b))
+    _bit_equal(a, b, (key,))
+    return two[0][key]
+
+
+def _hold_grads(got, want, step):
+    """Gradients of a 2-rank leg against one process's, at the tolerances of
+    tests/test_torch_dist.py (rtol 1e-4, atol 1e-5 per element), but for
+    the stem's leaves from step 2 on. A later step's gradients are taken at
+    parameters that already differ by the f32 summation order, and a unit
+    of the stem's three ReLUs can sit at its kink within that difference:
+    in the SGD legs one unit of 262144 after stem2 changes sides in step 2
+    (in one process too, from the one f32 ulp of stem0's kernel that the
+    2-rank step moved), which moves every stem leaf's gradient by ~1.8e-3
+    of its norm. So there the stem's leaves are held as
+    `scripts/tp_parity.py` holds them on the card: each relative to its
+    norm within RTOL_STEM."""
+    from autoprog_tpu_torch.scripts import dp_parity, tp_parity
+    stem = {k for k in want if tp_parity.family(k, want[k]) == "stem"} if step else set()
+    _close({k: v for k, v in got.items() if k not in stem},
+           {k: v for k, v in want.items() if k not in stem}, rtol=1e-4, atol=1e-5)
+    if stem:
+        _, per = dp_parity.grad_errors({k: got[k] for k in stem}, {k: want[k] for k in stem})
+        for k, err in per.items():
+            assert err <= tp_parity.RTOL_STEM, (step, k, err)
+
+
+def _hold_leg(got, want, *, params=True):
+    """A 2-rank leg's steps against one process's: every step's loss (rel
+    1e-5) and gradients (`_hold_grads`), the parameters after each step
+    (atol 1e-6)."""
+    assert [r["loss"] for r in got] == pytest.approx([r["loss"] for r in want], rel=1e-5)
+    for step, (g, w) in enumerate(zip(got, want)):
+        _hold_grads(g["grads"], w["grads"], step)
+        if params:
+            _close(g["params"], w["params"], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("count", [2, 4])
+def test_sharded_dither_equals_the_one_process_rounding(count):
+    """`cast_bf16_sr` with the shards' specs (no process group: each shard
+    from `tp.shard_tree`): every shard of the one-process rounding equals
+    the rounding of that shard, at M = 2 and 4, for qkv and kv (head-wise
+    parts), a row-parallel kernel, contiguous column-parallel kernels and
+    biases, and replicated leaves. The largest leaf is sharded, so the
+    unrepaired rounding, a sweep of the local largest leaf read at each
+    shard's own shape (the call without specs), differs in every sharded
+    leaf."""
+    from autoprog_tpu_torch.ops.rounding import cast_bf16_sr
+    from autoprog_tpu_torch.parallel import tp
+    C = 16
+    shapes = {"s1b0.attn.qkv.weight": (3 * C, C), "post0.attn.kv.weight": (2 * C, C),
+              "post0.attn.kv.bias": (2 * C,), "s1b0.attn.proj.weight": (C, C),
+              "s1b0.mlp.fc1.weight": (4 * C, C), "s1b0.mlp.fc1.bias": (4 * C,),
+              "s0b0.attn.v.weight": (C, C), "s1b0.norm1.weight": (C,),
+              "s1b0.attn.proj.bias": (C,), "pos_embed": (1, 4, 4, C)}
+    rs = np.random.default_rng(count)
+    full = {k: torch.from_numpy(rs.normal(size=v).astype(np.float32)) for k, v in shapes.items()}
+    specs = {k: tp.param_spec(k, v.ndim) for k, v in full.items()}
+    assert max(full.values(), key=torch.Tensor.numel) is full["s1b0.mlp.fc1.weight"]
+    assert specs["s1b0.attn.qkv.weight"] == (0, 3) and specs["post0.attn.kv.bias"] == (0, 2)
+    assert specs["s1b0.attn.proj.weight"] == (1, 1) and specs["pos_embed"] is None
+
+    def rounded(tree, **kw):
+        out = cast_bf16_sr(list(tree.values()), torch.Generator().manual_seed(9), **kw)
+        return dict(zip(tree, out))
+    one = rounded(full)
+    sharded_differ = set()
+    for m in range(count):
+        shards = tp.shard_tree(full, m, count)
+        got = rounded(shards, specs=[specs[k] for k in shards], m=m, count=count)
+        want = tp.shard_tree(one, m, count)
+        old = rounded(shards)
+        for k in full:
+            assert got[k].dtype == torch.bfloat16 and got[k].shape == shards[k].shape
+            assert torch.equal(got[k].view(torch.int16), want[k].view(torch.int16)), (m, k)
+            if not torch.equal(old[k].view(torch.int16), want[k].view(torch.int16)):
+                sharded_differ.add(k)
+    assert sharded_differ >= {k for k, sp in specs.items() if sp is not None}
+    # without tensor parallelism the specs change nothing
+    again = rounded(full, specs=list(specs.values()), m=0, count=1)
+    for k in full:
+        assert torch.equal(again[k].view(torch.int16), one[k].view(torch.int16)), k
+
+
+def test_bf16_ema_sweep_under_tp_is_the_one_process_rounding(legs):
+    """`StepBuilder._update_ema` on bf16 trees (two decays, two sweeps) from
+    the same f32 parameters: the two ranks' trees, gathered, equal one
+    process's bit for bit (volo_h4_l4: qkv, kv, row-parallel proj / fc2,
+    contiguous v / attn / fc1)."""
+    from autoprog_tpu_torch.parallel.tp import param_spec
+    two, one = legs
+    got = _same_on_both(two, "ema_round")
+    n_sharded = 0
+    for sweep_got, sweep_want in zip(got, one["ema_round"]):
+        for g, w in zip(sweep_got, sweep_want):
+            assert sorted(g) == sorted(w)
+            for k in w:
+                assert g[k].dtype == torch.bfloat16
+                assert torch.equal(g[k].view(torch.int16), w[k].view(torch.int16)), k
+                n_sharded += param_spec(k, w[k].ndim) is not None
+    assert n_sharded > 40
+
+
+@pytest.mark.parametrize("opt", SGD_OPTS)
+def test_sgd_under_tp_equals_one_process(legs, opt):
+    """(i) two steps of `--opt sgd` / `momentum` (the Nesterov trace) at M = 2:
+    losses, gradients and parameters as one process's, and the momentum
+    buffers gathered by `tp.gather_optimizer_state` (gradient-like: as
+    `_hold_grads` holds the gradients of the same step)."""
+    two, one = legs
+    got, want = _same_on_both(two, opt)["steps"], one[opt]["steps"]
+    _hold_leg(got, want)
+    for step, (g, w) in enumerate(zip(got, want)):
+        _hold_grads({k: v["momentum_buffer"] for k, v in g["opt"].items()},
+                    {k: v["momentum_buffer"] for k, v in w["opt"].items()}, step)
+
+
+def test_sgd_tp_step_equals_the_jax_tp_step(ranks, legs):
+    """(i) (a)'s step under `--opt sgd` at M = 2 against the JAX package's SGD
+    step on the (4 data x 2 model) mesh with `shard_state_tp`: the loss, the
+    parameters and the Nesterov trace."""
+    two, _ = legs
+    jax_sgd = ranks["jax"]["sgd"]
+    got = _same_on_both(two, "sgd_jax")
+    assert got["loss"] == pytest.approx(ranks["jax"]["loss"], rel=1e-5)
+    _close(got["params"], {k: v.float() for k, v in jax_sgd["params"].items()},
+           rtol=0, atol=1e-6)
+    _close({k: v["momentum_buffer"] for k, v in got["opt"].items()}, jax_sgd["trace"],
+           rtol=1e-4, atol=1e-5)
+
+
+def test_bf16_first_moment_under_tp_within_one_rounding(legs):
+    """(j) two AdamW steps with `--adam-mu-bf16` at M = 2: losses and
+    gradients as one process's, the parameters after step 1 too (it updates
+    from the f32 moment); the bf16 moments and the parameters after step 2
+    within the bounds that a moment rounded to its other bf16 neighbour
+    gives (`tp_parity.mu_bf16_bounds`, element by element). The counts and
+    the bound are printed."""
+    from autoprog_tpu_torch.scripts import tp_parity
+    two, one = legs
+    got, want = _same_on_both(two, "mu_bf16")["steps"], one["mu_bf16"]["steps"]
+    _hold_leg(got, want, params=False)
+    _close(got[0]["params"], want[0]["params"], rtol=0, atol=1e-6)
+    b = tp_parity.mu_bf16_bounds(got, want, lr=LR, eps=1e-3)
+    print(f"(j) bf16 first moment at M=2: {b['m1']} / {b['elements']} elements of m1 and "
+          f"{b['m2']} of m2 differ from one process's; parameters after step 2 apart by at "
+          f"most {b['dp']:.3e}, the per-element bound at most {b['bound']:.3e}")
+    assert b["beyond"] == [] and b["m1"] < b["elements"] // 100
+
+
+def test_bf16_first_moment_checkpoint_resumes_at_m1_and_m2(ranks):
+    """(j) (j)'s state after its two steps, saved at M = 2 by rank 0
+    (`build_payload` gathers every shard), resumed through
+    `engine.resume_from` at M = 2 (the workers) and at M = 1 (this
+    process): the gathered parameters and optimizer state equal the file's
+    bit for bit, the first moment in bf16 in the file, on each rank's
+    shards and gathered again."""
+    from autoprog_tpu_torch.train.checkpoint import load_checkpoint_file
+    ck = load_checkpoint_file(os.path.join(ranks["dirs"][2], "mu_bf16.ckpt"))
+    mus = [st["exp_avg"] for st in ck["optimizer"]["state"].values()]
+    assert mus and all(t.dtype == torch.bfloat16 for t in mus)
+    for got in [r["mu_resume"] for r in ranks["res"][2]] + [ranks["ref"]["mu_resume"]]:
+        assert got["differ"] == [] and got["local_mu_dtypes"] == ["torch.bfloat16"]
+        assert got["step"] == LEG_STEPS
+
+
+def test_bf16_ema_under_tp_within_one_bf16_step(legs):
+    """(k) two AdamW steps with one bf16 EMA tree (decay 0.99) at M = 2 after
+    the dither repair: every element of the gathered tree within one bf16
+    step of one process's. An element differs only where the f32 values it
+    is rounded from differ (the parameters, by summation order): with the
+    same dither, x and y round apart with probability |x - y| / spacing, so
+    the expected count of new ones is (1 - d) sum |dp| / spacing per step
+    (a difference, once made, is carried on by d), and the count is held to
+    4 times that plus 10. The replicated leaves are bit-equal across the
+    ranks."""
+    from autoprog_tpu_torch.parallel.tp import param_spec
+    from autoprog_tpu_torch.scripts import tp_parity
+    two, one = legs
+    got, want = _same_on_both(two, "ema_bf16")["steps"], one["ema_bf16"]["steps"]
+    _hold_leg(got, want)
+    d, n_diff, expected = EMA_BF16[0], [], 0.0
+    for g, w in zip(got, want):
+        r = tp_parity.ema_bf16_steps(g["ema"], w["ema"])
+        assert r["max_steps"] <= 1, r
+        n_diff.append(r["differ"])
+        expected += sum(float(((1 - d) * (g["params"][k] - w["params"][k]).abs() /
+                               tp_parity.bf16_spacing(w["ema"][0][k])).sum())
+                        for k in w["params"])
+    print(f"(k) bf16 EMA at M=2: {n_diff} of {r['elements']} elements one bf16 step from "
+          f"one process's after steps 1, 2 (expected from the parameter differences: "
+          f"{expected:.2f} new ones in all)")
+    assert n_diff[-1] <= 4 * expected + 10
+    r0, r1 = two[0]["ema_bf16"]["ema_local"][0], two[1]["ema_bf16"]["ema_local"][0]
+    for k, v in r0.items():
+        if param_spec(k, v.ndim) is None:
+            assert torch.equal(v.view(torch.int16), r1[k].view(torch.int16)), k
+
+
+@pytest.mark.parametrize("option", sorted(OPTION_LEGS))
+def test_step_option_under_tp_equals_one_process(legs, option):
+    """(l) two steps at M = 2 under `--batch-splits 2`, `--remat dots` with
+    drop-path 0.1 (the recompute replays the drop paths and the
+    row-parallel all-reduce), AUTOPROG_SPARSE_TL=1 or `--drop 0.1` (the
+    position-embedding dropout on replicated tokens, one mask on both
+    ranks): losses, gradients and parameters as one process's."""
+    two, one = legs
+    _hold_leg(_same_on_both(two, option)["steps"], one[option]["steps"])
+
+
+def test_jsd_aug_splits_under_tp_equals_one_process(ranks):
+    """(m) `main.py --model-parallel 2 --aug-splits 3 --jsd` for 2 epochs:
+    every step's loss on both ranks equals one process's within 1e-5
+    relative."""
+    want = ranks["ref"]["jsd"]
+    assert len(want) == 4 and all(np.isfinite(want))
+    for r in ranks["res"][2]:
+        assert r["jsd_loss"] == pytest.approx(want, rel=1e-5)
+
+
+def test_recal_bn_under_tp_equals_one_process(ranks):
+    """(m) `main_prog.py --model-parallel 2 --recal-bn-steps 2` through its
+    depth growth (l 2 -> 4): the stem's BatchNorm running stats right
+    after the recalibration and at the end are bit-equal across the ranks
+    and equal one process's within 1e-6; the same stages and losses."""
+    d = ranks["dirs"][2]
+    two = [torch.load(os.path.join(d, f"recal{r}.pt")) for r in (0, 1)]
+    want = ranks["ref"]["recal"]
+    assert len(want["recal"]) == 1 and want["history"][-1][1] == 4
+    for r in ranks["res"][2]:
+        assert r["recal_history"] == want["history"]
+        assert r["recal_loss"] == pytest.approx(want["loss"], rel=1e-5)
+    for when in ("recal", "final"):
+        a, b = two[0][when], two[1][when]
+        for x, y, w in zip(a if when == "recal" else [a], b if when == "recal" else [b],
+                           want[when] if when == "recal" else [want[when]]):
+            assert sorted(x) == sorted(w) and any(k.startswith("patch_embed.stem") for k in x)
+            for k in w:
+                assert torch.equal(x[k], y[k]), (when, k)
+            _close(x, w, rtol=0, atol=1e-6)
 
 
 if __name__ == "__main__":
