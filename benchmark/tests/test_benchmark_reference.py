@@ -1,0 +1,116 @@
+"""The plain reference against the port on the CPU at tiny sizes, and the
+train FLOP formula against what the reference's forward computes."""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from benchmark import cost, inputs, program
+from benchmark.reference import train as ref
+from benchmark.reference.numerics import Numerics
+from conftest import BENCH, HERE, REPO
+
+
+def _cfg(name):
+    return json.loads((HERE / "fixtures" / f"{name}.json").read_text())
+
+
+def _cell_traffic(name):
+    src = {"volo_tiny": "volo_d1-b128", "deit_tiny": "deit_small-b256"}[name]
+    t = json.loads((BENCH / "workloads" / f"{src}.json").read_text())
+    t["img_size"] = 32
+    return t
+
+
+@pytest.mark.parametrize("name", ["volo_tiny", "deit_tiny"])
+def test_reference_forward_loss_and_gradients_equal_the_port_s_in_float32(name, monkeypatch):
+    """The port built in float32 (no bf16 anywhere) and the reference, from
+    the same weights and batch (a MixToken box inside the grid): equal loss
+    and gradients to float32 rounding."""
+    monkeypatch.setenv("AUTOPROG_TORCH_DEVICE", "cpu")
+    from autoprog_tpu_torch.losses import build_train_loss
+    from autoprog_tpu_torch.registry import create_model
+    from autoprog_tpu_torch.train.steps import StepBuilder
+    cfg, traffic = _cfg(name), _cell_traffic(name)
+    rec = traffic["recipe"]
+    w = inputs.make_weights(ref.param_shapes(cfg), 7, "cpu")
+    batch = inputs.make_batch(traffic, cfg, 7, 0, 6, "cpu")
+    if "bbox" in batch:
+        batch["bbox"] = (0, 1, 1, 2)
+    torch.manual_seed(0)
+    net = create_model(cfg["program_model"]).make(num_classes=1000, img_size=32,
+                                                  dtype=torch.float32)
+    program.load_weights(net, w)
+    tl = rec["loss"] == "token_label"
+    import argparse
+    args = argparse.Namespace(jsd=False, token_label=tl, token_label_size=2, dense_weight=0.5,
+                              cls_weight=1.0, ground_truth=False, smoothing=0.1)
+    sb = StepBuilder(train_loss=build_train_loss(args), num_classes=1000, smoothing=0.1,
+                     token_label=tl, has_token_label_data=tl)
+    box = torch.tensor(batch["bbox"], dtype=torch.int32) if tl else None
+    out = net(batch["image"], train=True, bbox=box)
+    loss = sb.train_loss(out, sb.build_target(batch, 32))
+    grads = torch.autograd.grad(loss, list(net.parameters()))
+    P = {n: t.clone().requires_grad_(True) for n, t in w.items()}
+    r_out = ref.family(cfg).forward(P, batch["image"], batch.get("bbox"), cfg, Numerics())
+    r_loss = ref.loss_of(r_out, batch, cfg, rec)
+    r_grads = torch.autograd.grad(r_loss, [P[n] for n, _ in net.named_parameters()])
+    assert float(loss.detach()) == pytest.approx(float(r_loss.detach()), rel=1e-5)
+    for (n, _), g, rg in zip(net.named_parameters(), grads, r_grads):
+        torch.testing.assert_close(g, rg, rtol=2e-3, atol=2e-6 * float(rg.abs().max()) + 1e-9,
+                                   msg=n)
+
+
+def test_mix_token_box_moves_the_loss():
+    """The box reaches the reference: swapping regions changes the loss."""
+    cfg, traffic = _cfg("volo_tiny"), _cell_traffic("volo_tiny")
+    w = inputs.make_weights(ref.param_shapes(cfg), 3, "cpu")
+    batch = inputs.make_batch(traffic, cfg, 3, 0, 4, "cpu")
+    losses = []
+    for box in ((0, 0, 0, 0), (0, 0, 2, 2)):
+        out = ref.family(cfg).forward(w, batch["image"], box, cfg, Numerics())
+        losses.append(float(ref.loss_of(out, {**batch, "bbox": box}, cfg, traffic["recipe"])))
+    assert losses[0] != losses[1]
+
+
+@pytest.mark.parametrize("name,paper_macs", [("volo_d1", 6.8e9), ("deit_small", 4.6e9)])
+def test_flop_formula_equals_the_reference_forward_and_the_paper(name, paper_macs):
+    """The frozen formula counts exactly the products FlopCounterMode sees
+    in the reference's forward at full width, batch 1; and it reads within
+    2 % of the paper's MACs."""
+    from torch.utils.flop_counter import FlopCounterMode
+    cfg = json.loads((BENCH / "configs" / f"{name}.json").read_text())
+    w = inputs.make_weights(ref.param_shapes(cfg), 0, "cpu")
+    batch = {"image": torch.randn(1, 224, 224, 3), "label": torch.zeros(1, dtype=torch.long)}
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        ref.family(cfg).forward(w, batch["image"], (0, 0, 0, 0), cfg, Numerics())
+    assert fc.get_total_flops() == 2 * cost.forward_macs(cfg)
+    assert abs(cost.forward_macs(cfg) / paper_macs - 1) < 0.02
+    n_params = sum(t.numel() for t in w.values())
+    assert abs(n_params / (cfg["published"]["params_m"] * 1e6) - 1) < 0.01
+
+
+def test_fp8_control_rounds_and_float32_does_not():
+    x = torch.randn(64, 64, requires_grad=True)
+    assert torch.equal(Numerics("float32").q(x), x)
+    y = Numerics("fp8").q(x)
+    rel = ((y - x).norm() / x.norm()).item()
+    assert 1e-3 < rel < 0.1
+    y.sum().backward()
+    assert torch.equal(x.grad, torch.ones_like(x))       # ones are exact in e5m2
+
+
+def test_the_reference_imports_nothing_of_the_program():
+    code = ("import sys; import benchmark.reference.train, benchmark.cost, benchmark.inputs; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('autoprog_tpu_torch', 'autoprog_tpu', 'jax', 'jaxlib', 'flax')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       env={**os.environ, "PYTHONPATH": str(REPO)}, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
