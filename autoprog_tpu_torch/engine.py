@@ -60,6 +60,7 @@ from autoprog_tpu_torch.train.checkpoint import CheckpointSaver, build_payload, 
 from autoprog_tpu_torch.train.optim import create_grad_clip, create_optimizer, create_scheduler
 from autoprog_tpu_torch.train.state import TrainState
 from autoprog_tpu_torch.train.steps import StepBuilder
+from autoprog_tpu_torch.utils import spans
 
 _logger = logging.getLogger("autoprog_tpu_torch")
 
@@ -277,7 +278,9 @@ class _Profile:
     """`--profile DIR`: a `torch.profiler` trace (CPU and, on a card, CUDA
     activity) of the steps of epoch 0 from batch 1 (past the first step's
     warm-up) to batch min(profile_steps, nb - 2), as the JAX package's
-    `jax.profiler` trace; written to DIR as a Chrome trace."""
+    `jax.profiler` trace; written to DIR as a Chrome trace. The trace shows
+    the program's spans (`utils/spans.py`: the step's segments, forward and
+    backward, `train.data_wait` and `train.to_device`) above the kernels."""
 
     def __init__(self, args, device: torch.device, epoch: int, nb: int):
         self.dir = getattr(args, "profile", "") if epoch == 0 and mesh.is_primary() else ""
@@ -310,6 +313,18 @@ class _Profile:
         _logger.info("profiler trace written to %s", path)
 
 
+def _waited(batches):
+    """The batches, each fetched inside a `train.data_wait` span (the wait
+    that `data_time` meters)."""
+    it = iter(batches)
+    while True:
+        with spans.span("train.data_wait"):
+            item = next(it, None)
+        if item is None:
+            return
+        yield item
+
+
 def train_one_epoch(ctx: TrainContext, epoch: int, loader: Loader, *, r: int,
                     keep=None, splits: int = 1,
                     epoch_time_m: Optional[AverageMeter] = None,
@@ -331,10 +346,12 @@ def train_one_epoch(ctx: TrainContext, epoch: int, loader: Loader, *, r: int,
     last_log_idx, last_log_t = 0, end
     profile = _Profile(args, ctx.device, epoch, nb)
     try:
-        for batch_idx, batch in batches:
+        for batch_idx, batch in _waited(batches):
             profile.before(batch_idx)
             data_time.update(time.time() - end)
-            metrics = ctx.sb.train_step(ctx.state, to_device(batch, ctx.device), lr,
+            with spans.span("train.to_device"):
+                on_device = to_device(batch, ctx.device)
+            metrics = ctx.sb.train_step(ctx.state, on_device, lr,
                                         r=r, keep=keep, splits=splits, re_prob=device_re)
             loss_sum = metrics["loss"] if loss_sum is None else loss_sum + metrics["loss"]
             n_steps += 1

@@ -38,6 +38,7 @@ from autoprog_tpu_torch.models.layers import (
     trunc_init_,
 )
 from autoprog_tpu_torch.ops.interpolate import resize_bicubic
+from autoprog_tpu_torch.utils import spans
 
 
 class VisionTransformer(nn.Module):
@@ -82,29 +83,34 @@ class VisionTransformer(nn.Module):
         if len(keep_flat) != self.depth:
             raise ValueError(f"keep mask length {len(keep_flat)} != depth {self.depth}")
         B, C = x.shape[0], self.embed_dim
-        x = self.patch_embed(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)  # [B, g, g, C]
-        gh, gw = x.shape[1], x.shape[2]
-        tokens = [self.cls_token.to(self.dtype).expand(B, 1, C)]
-        if self.distilled:
-            tokens.append(self.dist_token.to(self.dtype).expand(B, 1, C))
-        x = torch.cat(tokens + [x.reshape(B, gh * gw, C)], dim=1)
+        with spans.span("model.stem"):
+            x = self.patch_embed(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)  # [B, g, g, C]
+            gh, gw = x.shape[1], x.shape[2]
+            tokens = [self.cls_token.to(self.dtype).expand(B, 1, C)]
+            if self.distilled:
+                tokens.append(self.dist_token.to(self.dtype).expand(B, 1, C))
+            x = torch.cat(tokens + [x.reshape(B, gh * gw, C)], dim=1)
 
-        g0 = self.img_size // self.patch_size
-        np_ = self.n_prefix
-        pe_grid = self.pos_embed[:, np_:].reshape(1, g0, g0, C)
-        pe_grid = resize_bicubic(pe_grid, (gh, gw)).reshape(1, gh * gw, C)
-        pe = torch.cat([self.pos_embed[:, :np_], pe_grid], dim=1)
-        x = dropout(x + pe.to(self.dtype), self.drop_rate, train, drop_gen)
+            g0 = self.img_size // self.patch_size
+            np_ = self.n_prefix
+            pe_grid = self.pos_embed[:, np_:].reshape(1, g0, g0, C)
+            pe_grid = resize_bicubic(pe_grid, (gh, gw)).reshape(1, gh * gw, C)
+            pe = torch.cat([self.pos_embed[:, :np_], pe_grid], dim=1)
+            x = dropout(x + pe.to(self.dtype), self.drop_rate, train, drop_gen)
+        spans.mark_backward(x, "model.stem")
 
-        for i in range(self.depth):
-            if keep_flat[i]:
-                x = remat_call(getattr(self, f"s0b{i}"), x, train, drop_gen, self.remat)
+        with spans.span("model.transformers"):
+            for i in range(self.depth):
+                if keep_flat[i]:
+                    x = remat_call(getattr(self, f"s0b{i}"), x, train, drop_gen, self.remat)
+        spans.mark_backward(x, "model.transformers")
 
-        x = self.norm(x)
-        x_cls = self.head(x[:, 0])
-        if not self.distilled:
-            return x_cls
-        x_dist = self.head_dist(x[:, 1])
-        if train:
-            return x_cls, x_dist
-        return (x_cls + x_dist) / 2
+        with spans.span("model.head"):
+            x = self.norm(x)
+            x_cls = self.head(x[:, 0])
+            if not self.distilled:
+                return x_cls
+            x_dist = self.head_dist(x[:, 1])
+            if train:
+                return x_cls, x_dist
+            return (x_cls + x_dist) / 2

@@ -39,6 +39,7 @@ from autoprog_tpu_torch.models.layers import (
 )
 from autoprog_tpu_torch.ops.interpolate import resize_bicubic
 from autoprog_tpu_torch.ops.mixtoken import mix_tokens, rand_bbox, unmix_tokens
+from autoprog_tpu_torch.utils import spans
 
 KeepMasks = Tuple[Tuple[bool, ...], ...]
 
@@ -127,24 +128,37 @@ class VOLO(nn.Module):
         """x: NHWC images. Train mode returns (x_cls, x_aux, bbox) with the
         aux tokens un-mixed; eval returns the fused logits [B, classes]."""
         keep = self._keep(keep)
-        x = self.patch_embed(x, train=train)              # [B, r/8, r/8, C0]
+        with spans.span("model.stem"):
+            x = self.patch_embed(x, train=train)          # [B, r/8, r/8, C0]
+            use_mix = self.mix_token and train
+            if use_mix:
+                ps = self.pooling_scale
+                if bbox is None:
+                    bbox = rand_bbox(mix_gen, x.shape[1] // ps, x.shape[2] // ps)
+                x = mix_tokens(x, bbox, scale=ps)
+            else:
+                bbox = torch.zeros(4, dtype=torch.int32)
+        spans.mark_backward(x, "model.stem")
 
-        use_mix = self.mix_token and train
-        if use_mix:
-            ps = self.pooling_scale
-            if bbox is None:
-                bbox = rand_bbox(mix_gen, x.shape[1] // ps, x.shape[2] // ps)
-            x = mix_tokens(x, bbox, scale=ps)
-        else:
-            bbox = torch.zeros(4, dtype=torch.int32)
-
-        pos_added = False
-        for s, nl in enumerate(self.layers):
-            if not self.outlook[s] and not pos_added:
+        # the outlook stages come first: the transformer stages start at the
+        # pos-embed, added before the first stage without outlook attention
+        first_t = self.outlook.index(False) if False in self.outlook else len(self.layers)
+        with spans.span("model.outlookers"):
+            x = self._stages(x, range(first_t), keep, train, drop_gen)
+        spans.mark_backward(x, "model.outlookers")
+        with spans.span("model.transformers"):
+            if first_t < len(self.layers):
                 pe = resize_bicubic(self.pos_embed, (x.shape[1], x.shape[2]))
                 x = dropout(x + pe.to(self.dtype), self.drop_rate, train, drop_gen)
-                pos_added = True
-            for i in range(nl):
+                x = self._stages(x, range(first_t, len(self.layers)), keep, train, drop_gen)
+        spans.mark_backward(x, "model.transformers")
+        with spans.span("model.head"):
+            return self._head(x, train, use_mix, bbox, drop_gen)
+
+    def _stages(self, x, stages, keep: KeepMasks, train: bool, drop_gen):
+        """The kept blocks of `stages`, each stage followed by its downsample."""
+        for s in stages:
+            for i in range(self.layers[s]):
                 if not keep[s][i]:
                     continue
                 blk = getattr(self, f"s{s}b{i}")
@@ -156,7 +170,10 @@ class VOLO(nn.Module):
                                    self.remat).reshape(B, H, W, C)
             if self.downsamples[s]:
                 x = getattr(self, f"ds{s}")(x)
+        return x
 
+    def _head(self, x, train: bool, use_mix: bool, bbox, drop_gen):
+        """Class attention, norm and heads; un-mixes the aux tokens."""
         B, H, W, C = x.shape
         x = x.reshape(B, H * W, C)
         if self.post_layers:

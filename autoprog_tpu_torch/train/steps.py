@@ -51,6 +51,7 @@ from autoprog_tpu_torch.ops.interpolate import resize_bilinear
 from autoprog_tpu_torch.ops.rounding import cast_bf16_sr
 from autoprog_tpu_torch.parallel import mesh, tp
 from autoprog_tpu_torch.train.state import TrainState
+from autoprog_tpu_torch.utils import spans
 
 #: gradients the train step filled with zeros (parameters the forward did
 #: not reach); a step without a keep mask adds none
@@ -161,39 +162,57 @@ class StepBuilder:
         """One optimizer update, in place on `state`; returns {"loss"} as a
         device scalar (no host sync). `bbox` injects the MixToken box;
         `re_prob` erases uint8 batches on the device."""
-        model = state.model
-        images, target = batch["image"], self.build_target(batch, r)
-        mb = images.shape[0] // splits
-        tb = (target["vals"] if isinstance(target, dict) else target).shape[0] // splits
-        loss_sum = torch.zeros((), device=images.device)
-        for i in range(splits):
-            x = self.prep_images(images[i * mb:(i + 1) * mb], re_prob)
-            out = model(resize_bilinear(x, r), train=True, keep=keep,
-                        bbox=bbox, drop_gen=self.drop_gen, mix_gen=self.mix_gen)
-            loss = self.train_loss(out, _rows(target, slice(i * tb, (i + 1) * tb)))
-            (loss / splits).backward()
-            loss_sum += loss.detach()
-        named = list(model.named_parameters())
+        with spans.span("step"):
+            model = state.model
+            images = batch["image"]
+            mb = images.shape[0] // splits
+            with spans.span("step.input"):
+                target = self.build_target(batch, r)
+                xs = [resize_bilinear(self.prep_images(images[i * mb:(i + 1) * mb], re_prob), r)
+                      for i in range(splits)]
+                loss_sum = torch.zeros((), device=images.device)
+            tb = (target["vals"] if isinstance(target, dict) else target).shape[0] // splits
+            for i, x in enumerate(xs):
+                out = model(x, train=True, keep=keep, bbox=bbox, drop_gen=self.drop_gen,
+                            mix_gen=self.mix_gen)
+                with spans.span("step.loss"):
+                    loss = self.train_loss(out, _rows(target, slice(i * tb, (i + 1) * tb)))
+                    loss_sum += loss.detach()
+                with spans.span("step.backward"), spans.backward_segments("model.head"):
+                    (loss / splits).backward()
+            with spans.span("step.update"):
+                self._update(state, lr)
+            return {"loss": loss_sum / splits}
+
+    def _update(self, state: TrainState, lr: float) -> None:
+        """Everything after the backward: zero gradients where the forward
+        did not reach, the all-reduce over the ranks, the clip, the optimizer
+        and the EMA sweeps."""
+        named = list(state.model.named_parameters())
         params = [p for _, p in named]
-        # a layer the keep mask skipped has no gradient; jax.grad gives it
-        # zeros, so the optimizer steps it (moments, decay, count) as optax does
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-                GRAD_FILLS["params"] += 1
-        if mesh.process_group_active():
-            mesh.all_reduce_grads(params)
-        if self.grad_clip is not None:
-            with torch.no_grad():
-                self.grad_clip(named)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
-        if self.ema_decays:
-            self._update_ema(state, [p.detach() for p in params])
+        with spans.span("update.fill"):
+            # a layer the keep mask skipped has no gradient; jax.grad gives it
+            # zeros, so the optimizer steps it (moments, decay, count) as optax does
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                    GRAD_FILLS["params"] += 1
+        with spans.span("update.allreduce"):
+            if mesh.process_group_active():
+                mesh.all_reduce_grads(params)
+        with spans.span("update.clip"):
+            if self.grad_clip is not None:
+                with torch.no_grad():
+                    self.grad_clip(named)
+        with spans.span("update.optimizer"):
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            state.optimizer.step()
+            state.optimizer.zero_grad(set_to_none=True)
+        with spans.span("update.ema"):
+            if self.ema_decays:
+                self._update_ema(state, [p.detach() for p in params])
         state.step += 1
-        return {"loss": loss_sum / splits}
 
     @torch.no_grad()
     def _update_ema(self, state: TrainState, params) -> None:
