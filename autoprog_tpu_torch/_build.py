@@ -70,6 +70,10 @@ SIGNATURES = {
     "outlook_fused_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P]),
     # patches, logits, out, B, n, C, heads, scale, head_minor, dtype, stream
     "outlook_attend": (_I, [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]),
+    # x, gamma, beta, y, stats, rows, C, eps, dtype, stream
+    "layernorm_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P]),
+    # x, dy, gamma, stats, dx, partial, dgamma, dbeta, rows, C, partial_rows, dtype, stream
+    "layernorm_bwd": (_I, [_P] * 8 + [_I, _I, _I, _I, _P]),
 }
 
 

@@ -48,6 +48,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from autoprog_tpu_torch.ops.layernorm import layer_norm
 from autoprog_tpu_torch.ops.outlook import outlook_attention
 from autoprog_tpu_torch.parallel import mesh, tp
 from autoprog_tpu_torch.ops.unfold import avg_pool_ceil
@@ -193,7 +194,9 @@ class Conv(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """Flax nn.LayerNorm(dtype): f32 statistics, eps 1e-6, output in dtype."""
+    """Flax nn.LayerNorm(dtype): f32 statistics, eps 1e-6, output in dtype
+    (`ops/layernorm.py`: the CUDA kernel pair on the card, the plain twin
+    elsewhere)."""
 
     def __init__(self, dim: int, dtype: torch.dtype, eps: float = 1e-6):
         super().__init__()
@@ -202,8 +205,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias,
-                            self.eps).to(self.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps, self.dtype)
 
 
 class BatchNorm(nn.Module):

@@ -210,6 +210,22 @@ back to the CPU or to a plain twin):
      must be above 0. The bench scripts `ab_bf16_state` and `ab_sparse_tl`
      are left out: phase 10 already sets their switches on the card. Any
      nonzero exit, 4 included, fails the run.
+ 15. LayerNorm (run right after phase 3; `ops/layernorm.py`,
+     `csrc/layernorm.cu`): the kernels against the plain twin on the card
+     (F.layer_norm in f32 between the widen and the cast), y, dx, dgamma and
+     dbeta, bf16 and f32, at every [rows, C] the benchmark's cells run
+     ([50432, 384], [100352, 192], [25088, 384], [25216, 384], [128, 384]),
+     a ragged row count and C = 32, 768, 1024: y and dx within 1 ulp of bf16
+     (f32: 1e-5 of the largest value), dgamma and dbeta within 1e-5 of the
+     largest value (`_ln_gap` gives the reasons); each call twice, the same
+     bits; one forward and two backward launches a call; one deit_small step
+     at b=16 under `--remat full` against the plain step (2 ulp of bf16, 25
+     / 49 forward launches); times at [50432, 384] and [100352, 192] beside
+     the plain chain, one F.layer_norm on bf16 and the bound; the host's time
+     a call, forward and forward + backward, against the plain chain at
+     [128, 384] (median of 60 alternating blocks).
+     Phases 4 and 6 also check 82 and 50 LayerNorm backward launches a step
+     (41 and 25 LayerNorms).
 
 The line before the last is the kernel report (JSON): for each kernel its
 launches on its path (K1 and K2: phases 4 to 6 and 9 to 12, both ranks of
@@ -221,7 +237,8 @@ variants: the measurement scripts of phase 7), its
 worst error against the twin, its time, the twin's,
 the least time the card could take (`bound_ms`, from the bytes it must move
 at 3.35 TB/s and its operations at the peak of their type), the library
-call's time where one exists; a variant's row names the kernels its phase 7
+call's time where one exists (LayerNorm's rows: each per shape, phase
+15's; its launches those of phases 4 and 6); a variant's row names the kernels its phase 7
 launches ran, as the library counted them (`kernel`). The last line is {"ok": true, "device":
 {...}}. Without a CUDA device the script exits 1 before printing any result.
 """
@@ -233,6 +250,7 @@ import os
 import re
 import shutil
 import socket
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -242,6 +260,7 @@ TOL_ULPS = {"bfloat16": 2.0 ** -6, "float32": 2.0 ** -20}
 MHSA_SRC = "autoprog_tpu_torch/csrc/mhsa_qkv.cu"
 OUTLOOK_SRC = "autoprog_tpu_torch/csrc/outlook.cu"
 VARIANTS_SRC = "autoprog_tpu_torch/csrc/mhsa_variants.cu"
+LN_SRC = "autoprog_tpu_torch/csrc/layernorm.cu"
 GROUPS = [("phase", 1), ("phase", 2), ("loop", 2), ("phase", 4), ("loop", 4)]
 
 
@@ -650,6 +669,202 @@ def phase_outlook_model_parity(torch):
     del model
 
 
+#: LayerNorm launches of the main path (phases 4 and 6), for the kernel report
+LN_PATH = {"fwd": 0, "bwd": 0}
+#: [rows, C] of every LayerNorm the benchmark's cells run (deit_small; volo_d1's
+#: outlookers, transformers, class-attention norm1 and final norm, cls norm2),
+#: a ragged row count, and the narrowest and widest rows the kernels take
+LN_SHAPES = [(50432, 384), (100352, 192), (25088, 384), (25216, 384), (128, 384),
+             (4099, 384), (517, 32), (517, 768), (517, 1024)]
+
+
+def _ln_gap(torch, got, ref, dt_name):
+    """Worst gap of a bf16 / f32 result to the twin's, as a share of the
+    tolerance (<= 1 passes). bf16: 1 ulp of the larger of the two elements,
+    since the two round the same f32 value once and the f32 values differ
+    only in summation order, which flips a rounding at most, plus 2^-21 of
+    the largest |value| for the elements where that order shows through a
+    cancellation (y = xhat * gamma + beta near 0, dx's three terms); f32:
+    1e-5 of the largest |value|."""
+    g, r = got.float(), ref.float()
+    top = max(float(r.abs().max()), 1e-30)
+    if dt_name == "float32":
+        return float((g - r).abs().max()) / (1e-5 * top)
+    _, e = torch.frexp(torch.maximum(g.abs(), r.abs()))
+    ulp = (e.float() - 8).exp2()
+    return float(((g - r).abs() / (ulp + 2.0 ** -21 * top)).max())
+
+
+def _ln_rows(worst, times):
+    """The kernel report's LayerNorm rows: launches on the main path (phases
+    4 and 6), the worst bf16 gap to the twin and phase 15's times per shape."""
+    return [{"name": f"layernorm_{side}", "route": "cuda", "source": LN_SRC,
+             "replaces": "models/layers.py:LayerNorm (XLA in the JAX package)",
+             "launches": LN_PATH[side],
+             "max_abs_err": max(worst[name, "bfloat16"] for name in names),
+             **{k: {shape: v[k][i] for shape, v in times.items()}
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
+            for i, (side, names) in enumerate((("fwd", ("y",)),
+                                               ("bwd", ("dx", "dgamma", "dbeta"))))]
+
+
+def phase_layernorm(torch, card):
+    """Phase 15: the LayerNorm kernels (`ops/layernorm.py`, `csrc/layernorm.cu`)
+    against the plain twin on the card, the same bits twice, a `--remat full`
+    step against the plain one, times and host cost. Returns the report's
+    worst gaps and times."""
+    import torch.nn.functional as F
+    from autoprog_tpu_torch.ops import layernorm as LN
+    t_phase = time.time()
+    gen = torch.Generator("cuda").manual_seed(15)
+    worst = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dt_name = str(dt).split(".")[-1]
+        for rows, C in LN_SHAPES:
+            x = (torch.randn(rows, C, device="cuda", generator=gen) * 2 + 0.5).to(dt)
+            dy = torch.randn(rows, C, device="cuda", generator=gen).to(dt)
+            w = torch.randn(C, device="cuda", generator=gen)
+            b = torch.randn(C, device="cuda", generator=gen)
+            runs = []
+            for _ in range(2):
+                xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
+                before = dict(LN.LAUNCHES)
+                y = LN.layer_norm(xs, ws, bs, 1e-6, dt)
+                runs.append((y.detach(), *torch.autograd.grad(y, (xs, ws, bs), dy)))
+                if (LN.LAUNCHES["fwd"] - before["fwd"], LN.LAUNCHES["bwd"] - before["bwd"]) \
+                        != (1, 2):
+                    fail(f"LayerNorm [{rows}, {C}] {dt_name}: launches {LN.LAUNCHES} after "
+                         f"{before}, not one forward and two backward")
+            xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
+            y = LN.layer_norm_reference(xs, ws, bs, 1e-6, dt)
+            ref = (y.detach(), *torch.autograd.grad(y, (xs, ws, bs), dy))
+            torch.cuda.synchronize()
+            tag = f"[{rows}, {C}] {dt_name}"
+            gaps = []
+            for name, got, want in zip(("y", "dx", "dgamma", "dbeta"), runs[0], ref):
+                if got.shape != want.shape or got.dtype != want.dtype or \
+                        not bool(got.isfinite().all()):
+                    fail(f"LayerNorm {name} {tag}: shape, dtype or finiteness differ from "
+                         f"the twin's")
+                gap = _ln_gap(torch, got, want, dt_name if name in ("y", "dx") else "float32")
+                gaps.append(f"{name} {gap:.3f}")
+                if not gap <= 1.0:
+                    fail(f"LayerNorm {name} {tag}: {gap:.3f} of the tolerance from the twin")
+                worst[name, dt_name] = max(worst.get((name, dt_name), 0.0),
+                                           float((got.float() - want.float()).abs().max()))
+            same = all(torch.equal(a, c) for a, c in zip(*runs))
+            say(f"phase 15 LayerNorm {tag}: share of the tolerance {', '.join(gaps)}; second "
+                f"run {'the same bits' if same else 'DIFFERENT bits'}")
+            if not same:
+                fail(f"LayerNorm {tag}: two runs gave different bits")
+    say(f"phase 15 LayerNorm worst |kernel - twin|: {worst}")
+
+    # one step under --remat full against the plain step (deit_small, b=16):
+    # the repo's remat tolerance, 2 ulp of bf16 of the largest |gradient|
+    from autoprog_tpu_torch import create_model
+    torch.manual_seed(0)
+    base = create_model("deit_small_patch16_224").make(num_classes=1000).state_dict()
+    img = torch.randn(16, 224, 224, 3, device="cuda", generator=gen)
+    label = torch.randint(0, 1000, (16,), device="cuda", generator=gen)
+    res = {}
+    for mode in ("", "full"):
+        m = create_model("deit_small_patch16_224").make(num_classes=1000, remat=mode).cuda()
+        m.load_state_dict(base)
+        before = dict(LN.LAUNCHES)
+        loss = F.cross_entropy(m(img, train=True).float(), label)
+        loss.backward()
+        res[mode] = (loss.detach(), {n: p.grad for n, p in m.named_parameters()},
+                     {k: LN.LAUNCHES[k] - before[k] for k in before})
+        del m
+    (ref_loss, ref, ref_n), (loss, g, n) = res[""], res["full"]
+    rel = max(float((g[k] - ref[k]).abs().max()) / max(float(ref[k].abs().max()), 1e-30)
+              for k in ref)
+    same = torch.equal(loss, ref_loss) and all(torch.equal(g[k], ref[k]) for k in ref)
+    say(f"phase 15 remat full (deit_small b=16): loss {float(loss):.6f} against "
+        f"{float(ref_loss):.6f}, {len(ref)} gradients {'bit for bit equal' if same else 'differ'}"
+        f" (largest difference {rel:.3e} of the largest |gradient|); LN launches plain "
+        f"{ref_n}, remat {n}")
+    if rel > 2.0 ** -6 or float((loss - ref_loss).abs()) > 2.0 ** -6 * float(ref_loss.abs()):
+        fail("--remat full: loss or gradients differ from the plain step's by more than 2 ulp "
+             "of bf16")
+    if ref_n != {"fwd": 25, "bwd": 50} or n != {"fwd": 49, "bwd": 50}:
+        fail(f"LayerNorm launches {ref_n} plain / {n} remat, not 25 / 49 forwards and 50 "
+             f"backwards")
+    del res, ref, g
+
+    # times (bf16): the kernels, the plain chain, one F.layer_norm on bf16
+    times = {}
+    for rows, C in ((50432, 384), (100352, 192)):
+        x = torch.randn(rows, C, device="cuda", generator=gen).to(torch.bfloat16)
+        dy = torch.randn_like(x)
+        w, b = torch.randn(C, device="cuda", generator=gen), torch.zeros(C, device="cuda")
+        _, stats = LN._launch_fwd(x, w, b, 1e-6)
+        k_f = _time_cuda(torch, lambda: LN._launch_fwd(x, w, b, 1e-6), 200)
+        k_b = _time_cuda(torch, lambda: LN._launch_bwd(x, dy, w, stats), 200)
+
+        def chain_ms(fn, params):
+            xs = x.clone().requires_grad_(True)
+            f = _time_cuda(torch, lambda: fn(xs, *params), 20)
+            y = fn(xs, *params)
+            fb = _time_cuda(torch, lambda: torch.autograd.grad(
+                y, (xs, *params), dy, retain_graph=True), 20)
+            return f, fb
+        wp, bp = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        p_f, p_b = chain_ms(lambda xs, ww, bb: LN.layer_norm_reference(
+            xs, ww, bb, 1e-6, torch.bfloat16), (wp, bp))
+        wl, bl = (t.to(torch.bfloat16).requires_grad_(True) for t in (w, b))
+        l_f, l_b = chain_ms(lambda xs, ww, bb: F.layer_norm(xs, (C,), ww, bb, 1e-6), (wl, bl))
+        nbytes = rows * C * 2
+        key = f"[{rows}, {C}]"
+        times[key] = {"ms": (k_f, k_b), "plain_ms": (p_f, p_b), "library_ms": (l_f, l_b),
+                      "bound_ms": (_bound(2 * nbytes, 0, 1)[0], _bound(3 * nbytes, 0, 1)[0])}
+        say(f"phase 15 LayerNorm times {key} bf16 on {card}: kernels fwd {k_f:.4f} / bwd "
+            f"{k_b:.4f} ms (bound {times[key]['bound_ms'][0]:.4f} / "
+            f"{times[key]['bound_ms'][1]:.4f}); plain chain fwd {p_f:.4f} / bwd {p_b:.4f}; "
+            f"F.layer_norm on bf16 fwd {l_f:.4f} / bwd {l_b:.4f} ms")
+
+    # host time a call at a shape where the host paces (device work of a few
+    # microseconds): the kernels against the plain chain, forward alone and
+    # forward + backward through autograd, in 60 blocks of 50 calls that
+    # alternate which path goes first; the median block of each (the card's
+    # host is shared, so single long blocks swing by tens of percent)
+    x = torch.randn(128, 384, device="cuda", generator=gen).to(torch.bfloat16)
+    dy = torch.randn_like(x)
+    w = torch.randn(384, device="cuda", generator=gen).requires_grad_(True)
+    b = torch.zeros(384, device="cuda").requires_grad_(True)
+    xs = x.clone().requires_grad_(True)
+    paths = {"kernels": LN.layer_norm, "plain": LN.layer_norm_reference}
+
+    def fwd(fn):
+        with torch.no_grad():
+            fn(xs, w, b, 1e-6, torch.bfloat16)
+
+    def fwd_bwd(fn):
+        torch.autograd.grad(fn(xs, w, b, 1e-6, torch.bfloat16), (xs, w, b), dy)
+    host = {}
+    for what, body in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+        for fn in paths.values():
+            for _ in range(200):
+                body(fn)
+        torch.cuda.synchronize()
+        for block in range(60):
+            for name in (("plain", "kernels") if block % 2 else ("kernels", "plain")):
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    body(paths[name])
+                host.setdefault((what, name), []).append((time.perf_counter() - t0) / 50 * 1e6)
+                torch.cuda.synchronize()
+    host = {k: statistics.median(v) for k, v in host.items()}
+    say(f"phase 15 LayerNorm host time a call at [128, 384] bf16 (median of 60 alternating "
+        f"blocks of 50): forward kernels {host['fwd', 'kernels']:.2f} us, plain chain "
+        f"{host['fwd', 'plain']:.2f} us; forward + backward through autograd kernels "
+        f"{host['fwd_bwd', 'kernels']:.2f} us, plain chain {host['fwd_bwd', 'plain']:.2f} us")
+    if host["fwd_bwd", "kernels"] > host["fwd_bwd", "plain"]:
+        say("phase 15 note: the kernels' host time a call is not below the plain chain's")
+    say(f"phase 15: {time.time() - t_phase:.1f} s")
+    return worst, times, host
+
+
 def phase_model_parity(torch):
     """volo_d1 eval logits through K1 vs the unfused path, f32, 4 images:
     both are f32 formulas over the same weights; tolerance 1e-3 absolute on
@@ -672,6 +887,19 @@ def phase_model_parity(torch):
     del model
 
 
+def _check_ln(phase: str, got, per_step: int, steps: int) -> None:
+    """A trainer run's LayerNorm launches: two backward launches a LayerNorm
+    of every train step, and at least one forward (the eval pass adds
+    forwards); added to `LN_PATH`."""
+    say(f"{phase} launches: LN {got} (train steps {steps} x {per_step} LayerNorms, "
+        f"backward two launches each = {2 * per_step * steps})")
+    if got["bwd"] != 2 * per_step * steps or got["fwd"] < per_step * steps:
+        fail(f"{phase}: LayerNorm launches {got} do not cover {per_step} LayerNorms x "
+             f"{steps} steps")
+    for k in LN_PATH:
+        LN_PATH[k] += got[k]
+
+
 def phase_trainer(torch, steps: int = 4, batch: int = 64):
     from autoprog_tpu_torch.main import main
     from autoprog_tpu_torch.ops.attention import LAUNCHES
@@ -688,8 +916,9 @@ def phase_trainer(torch, steps: int = 4, batch: int = 64):
     # the port's defaults on the card: K1 and K2 both on
     os.environ.pop("AUTOPROG_FUSED_ATTN", None)
     os.environ.pop("AUTOPROG_FUSED_OUTLOOK", None)
+    from autoprog_tpu_torch.ops.layernorm import LAUNCHES as LN_LAUNCHES
     from autoprog_tpu_torch.train.steps import GRAD_FILLS
-    for counts in (LAUNCHES, OUTLOOK_LAUNCHES, ROUTES, GRAD_FILLS):
+    for counts in (LAUNCHES, OUTLOOK_LAUNCHES, ROUTES, GRAD_FILLS, LN_LAUNCHES):
         for k in counts:
             counts[k] = 0
     t0 = time.time()
@@ -697,6 +926,7 @@ def phase_trainer(torch, steps: int = 4, batch: int = 64):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches, outlook = dict(LAUNCHES), dict(OUTLOOK_LAUNCHES)
+    _check_ln("phase 4", dict(LN_LAUNCHES), 41, steps)
     run = glob.glob(os.path.join(out, "train", "*"))[0]
     log = open(os.path.join(run, "log.txt")).read()
     losses = [float(v) for v in re.findall(r"Train: 0 \[\s*\d+/\d+\]\s+Loss: (\S+)", log)]
@@ -851,6 +1081,7 @@ def phase_deit(torch, card, steps: int = 4, batch: int = 64):
     from autoprog_tpu_torch.losses import build_train_loss
     from autoprog_tpu_torch.main import main
     from autoprog_tpu_torch.ops.attention import LAUNCHES
+    from autoprog_tpu_torch.ops.layernorm import LAUNCHES as LN_LAUNCHES
     from autoprog_tpu_torch.train.optim import create_optimizer
     from autoprog_tpu_torch.train.state import TrainState
     from autoprog_tpu_torch.train.steps import StepBuilder
@@ -865,11 +1096,14 @@ def phase_deit(torch, card, steps: int = 4, batch: int = 64):
                 "1e-3", "--fake-data-size", str(n_steps * batch), "--workers", "6",
                 "--log-interval", "1", "--output", out]
         _reset_mhsa_counts()
+        for k in LN_LAUNCHES:
+            LN_LAUNCHES[k] = 0
         t0 = time.time()
         best = main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(LAUNCHES)
+        _check_ln("phase 6", dict(LN_LAUNCHES), 25, n_steps)
         run = glob.glob(os.path.join(out, "train", "*"))[0]
         log = open(os.path.join(run, "log.txt")).read()
         losses = [float(v) for v in re.findall(r"Train: 0 \[\s*\d+/\d+\]\s+Loss: (\S+)", log)]
@@ -2930,6 +3164,7 @@ def main():
     worst = phase_kernels(torch)
     worst_v = phase_mhsa_variants(torch)
     worst_o = phase_outlook_kernels(torch)
+    worst_ln, t_ln, _ = phase_layernorm(torch, card)
     phase_model_parity(torch)
     phase_outlook_model_parity(torch)
     from autoprog_tpu_torch.ops.attention import SHAPE_LAUNCHES
@@ -3015,7 +3250,8 @@ def main():
     ] + [vrow(f"{order}_img{G}_{side}", VARIANTS_SRC, "scripts/bench_attn_x.py:" + line)
          for order, G in GROUPS
          for side, line in (("fwd", "47" if order == "phase" else "69"), ("bwd", "86"))]
-        + [row for shape in bench_k1_shapes for row in shape_rows(*shape)]}
+        + [row for shape in bench_k1_shapes for row in shape_rows(*shape)]
+        + _ln_rows(worst_ln, t_ln)}
     say(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s on {card}")
     say(json.dumps(report))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -323,8 +323,8 @@ def test_search_logs_carry_the_jax_probe_lines(search_runs):
         text = open(r["log"]).read()
         assert len(jax_words.findall(text)) == 8
         assert len(re.findall(r"probe r\d+: chained time probe \(compile\+warm\)", text)) == 4
-        assert "kernel launches: {'K1': {'fwd': 0, 'bwd': 0}, 'K2': {'fwd': 0, 'bwd': 0}}" \
-            in text
+        assert "kernel launches: {'K1': {'fwd': 0, 'bwd': 0}, 'K2': {'fwd': 0, 'bwd': 0}, " \
+            "'LN': {'fwd': 0, 'bwd': 0}}" in text
 
 
 # ---------------------------------------------------------------- (d) log parsing

@@ -867,3 +867,31 @@ def test_k2_row_kernels_on_a_tensor_parallel_rank_s_heads(cuda_device, dtype, B,
     dv, dlogits = O.outlook_attention_backward_reference(vd, ld, gout, heads, scale)
     assert_close(v.grad, dv, dtype)
     assert_close(logits.grad, dlogits, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,C", [(197 * 4, 384), (3, 192), (517, 32), (65, 1024), (9, 40)])
+def test_layer_norm_kernels_match_twin(cuda_device, dtype, rows, C):
+    """LayerNorm's kernels against its twin, forward and backward: y, dx at
+    2 ulp of the working dtype, dgamma / dbeta (f32 sums in another order)
+    at 1e-5 of the largest value; a second call gives the same bits."""
+    from autoprog_tpu_torch.ops import layernorm as LN
+    g = torch.Generator(cuda_device).manual_seed(0)
+    x = (torch.randn(rows, C, device=cuda_device, generator=g) + 0.5).to(dtype)
+    dy = torch.randn(rows, C, device=cuda_device, generator=g).to(dtype)
+    w, b = (torch.randn(C, device=cuda_device, generator=g) for _ in range(2))
+
+    def run(fn):
+        xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
+        y = fn(xs, ws, bs, 1e-6, dtype)
+        return (y.detach(), *torch.autograd.grad(y, (xs, ws, bs), dy))
+    before = dict(LN.LAUNCHES)
+    got, again = run(LN.layer_norm), run(LN.layer_norm)
+    assert LN.LAUNCHES == {"fwd": before["fwd"] + 2, "bwd": before["bwd"] + 4}
+    ref = run(LN.layer_norm_reference)
+    for k, (a, r) in enumerate(zip(got, ref)):
+        assert a.dtype == r.dtype and torch.equal(a, again[k])
+        if k < 2:
+            assert_close(a, r, dtype)
+        else:
+            assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max())

@@ -1,6 +1,7 @@
 """Port parity: the plain ops of autoprog_tpu_torch against their JAX
 counterparts (unfold, fold, avg_pool_ceil, both resizes, MixToken, outlook
-attention), on the same numpy inputs, f32.
+attention), on the same numpy inputs, f32; and LayerNorm's CPU path, which
+must stay the models' plain code bit for bit.
 
 Tolerance: 1e-6 absolute where both sides move data without arithmetic
 (unfold, masks, mixing); rtol/atol 1e-5 where they sum in f32 in another
@@ -16,7 +17,11 @@ from autoprog_tpu.ops import interpolate as jint
 from autoprog_tpu.ops import mixtoken as jmix
 from autoprog_tpu.ops import outlook as jout
 from autoprog_tpu.ops import unfold as junf
+import torch.nn.functional as F
+
+from autoprog_tpu_torch.models.layers import LayerNorm
 from autoprog_tpu_torch.ops import interpolate as tint
+from autoprog_tpu_torch.ops import layernorm as tln
 from autoprog_tpu_torch.ops import mixtoken as tmix
 from autoprog_tpu_torch.ops import outlook as tout
 from autoprog_tpu_torch.ops import unfold as tunf
@@ -128,3 +133,43 @@ def test_outlook_softmax_compute_dtype_bf16_matches_jax():
     got = tout._softmax_compute_dtype(torch.from_numpy(logits), 0.3, torch.bfloat16)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
                                atol=2 ** -8)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_on_the_cpu_is_the_plain_code(dtype):
+    """On a CPU tensor `LayerNorm` runs the twin: the widen, F.layer_norm in
+    f32 and cast of the models' code, bit for bit in the output and in every
+    gradient, with no kernel launch counted."""
+    g = torch.Generator().manual_seed(0)
+    ln = LayerNorm(24, dtype)
+    with torch.no_grad():
+        ln.weight.normal_(generator=g)
+        ln.bias.normal_(generator=g)
+    x = torch.randn(3, 5, 24, generator=g).to(dtype).requires_grad_(True)
+    dy = torch.randn(3, 5, 24, generator=g).to(dtype)
+    before = dict(tln.LAUNCHES)
+    y = ln(x)
+    grads = torch.autograd.grad(y, (x, ln.weight, ln.bias), dy)
+    x2 = x.detach().clone().requires_grad_(True)
+    w2, b2 = (p.detach().clone().requires_grad_(True) for p in (ln.weight, ln.bias))
+    y2 = F.layer_norm(x2.float(), (24,), w2, b2, 1e-6).to(dtype)
+    grads2 = torch.autograd.grad(y2, (x2, w2, b2), dy)
+    assert y.dtype == dtype and torch.equal(y, y2)
+    for got, want in zip(grads, grads2):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert tln.LAUNCHES == before
+
+
+@pytest.mark.parametrize("C,dtype,out", [
+    (36, torch.bfloat16, torch.bfloat16),       # not a multiple of 8
+    (1032, torch.float32, torch.float32),       # wider than the kernels take
+    (64, torch.float16, torch.float16),         # a dtype the kernels do not store
+    (64, torch.float32, torch.bfloat16),        # input and output dtypes differ
+])
+def test_layer_norm_kernels_refuse_what_they_do_not_take(C, dtype, out):
+    """The CUDA path's checks, which run before any launch (so on the CPU)."""
+    x = torch.zeros(2, C, dtype=dtype)
+    w, b = torch.ones(C), torch.zeros(C)
+    with pytest.raises(ValueError, match="layer_norm"):
+        tln.check_cuda(x, w, b, out)
+    tln.check_cuda(torch.zeros(2, 1024), torch.ones(1024), torch.zeros(1024), torch.float32)

@@ -82,7 +82,8 @@ def test_bench_roofline_rows_segments_and_floors(tiny, capsys):
         assert segs["TOTAL full step"][key] == full[key]
     assert res["img_per_s"] == pytest.approx(2 / (full["ms"] / 1e3))
     assert res["mfu"] == pytest.approx(full["flops"] / (full["ms"] / 1e3) / cost.BF16_FLOPS)
-    assert res["launches"] == {"K1": {"fwd": 0, "bwd": 0}, "K2": {"fwd": 0, "bwd": 0}}
+    assert res["launches"] == {"K1": {"fwd": 0, "bwd": 0}, "K2": {"fwd": 0, "bwd": 0},
+                               "LN": {"fwd": 0, "bwd": 0}}
 
 
 @pytest.mark.parametrize("side", ["fwd", "bwd"])
