@@ -26,7 +26,10 @@ limit of its own from the cell's file (`limits`):
     alone, differently on each side; a leaf with no such element counts
     whole, one with none counted is left out.
 
-A step that leaves the state unchanged reads 1 on `update_gap`.
+A step that leaves the state unchanged reads 1 on `update_gap`. A limit of
+None (JSON null) shows the number beside no limit and leaves it out of the
+verdict: a number that neither the control nor a planted fault reads
+clearly above the sound runs' readings could only fail sound runs.
 """
 
 from __future__ import annotations
@@ -126,12 +129,14 @@ def numbers(prog: dict, ref: dict) -> Dict[str, dict]:
 
 def judge(nums: Dict[str, dict], limits: Dict[str, float], failed_steps: int) -> dict:
     """{"correct": bool, "checks": {name: {"value", "limit"}}}; every
-    number must be finite and within its limit, every step's loss finite."""
+    number with a limit must be finite and within it, every step's loss
+    finite."""
     checks = {}
     ok = failed_steps == 0
     for name in NUMBERS:
         value, limit = nums[name]["value"], limits[name]
         checks[name] = {"value": value, "limit": limit}
-        ok = ok and math.isfinite(value) and value <= limit
+        if limit is not None:
+            ok = ok and math.isfinite(value) and value <= limit
     checks["nonfinite_steps"] = {"value": failed_steps, "limit": 0}
     return {"correct": ok, "checks": checks}

@@ -70,6 +70,16 @@ def launcher_env() -> None:
     os.environ.setdefault("OMP_NUM_THREADS", "1")
 
 
+def queue_env() -> None:
+    """CUDA's launch queues at four times their default depth
+    (`CUDA_SCALE_LAUNCH_QUEUES`, read when CUDA starts), unless the caller
+    set them: the host then issues steps further ahead of the card, and a
+    pause of the host (the machine stands still now and then) is spent while
+    the card works through what was queued rather than idle. The work and
+    the window are the same; only the host's lead grows."""
+    os.environ.setdefault("CUDA_SCALE_LAUNCH_QUEUES", "4x")
+
+
 def _all_gather(obj, world: int):
     if world == 1:
         return [obj]
@@ -113,7 +123,11 @@ def setup(cell, seed: int, device, rank: int, world: int):
 
 
 def reference_readings(cell, seed: int, device, precision: str = "float32") -> dict:
-    """The reference's readings from the same weights and global batches."""
+    """The reference's readings from the same weights and global batches.
+    Every cell's reference recomputes its blocks in the backward: the same
+    float32 operations run again, so no value changes, and a cell sized
+    to fill the card leaves room for the reference's float32 activations
+    (the stem's stay saved)."""
     from benchmark import correct, inputs
     from benchmark.reference.train import param_shapes, run_steps
     cfg = cell.model
@@ -121,7 +135,7 @@ def reference_readings(cell, seed: int, device, precision: str = "float32") -> d
                for k in range(correct.CHECK_STEPS)]
     weights = inputs.make_weights(param_shapes(cfg), seed, device)
     return run_steps(weights, batches, cfg, cell.traffic["recipe"], precision,
-                     checkpoint_blocks=cell.global_batch > 256)
+                     checkpoint_blocks=True)
 
 
 def free(device) -> None:
@@ -324,6 +338,7 @@ def main(argv=None) -> int:
     if args.rank is not None:
         pin_rank(args.rank, args.world)
     launcher_env()
+    queue_env()
     cache_env()
     from benchmark import spec
     cell = spec.load(args.workload)

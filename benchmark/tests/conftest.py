@@ -27,7 +27,7 @@ TINY_LIMITS = {
 
 def tiny_cell(cell: str, config: str, batch: int, chips: int = 1) -> dict:
     """The traffic of a real cell, cut to a tiny config and batch."""
-    source = {"volo_tiny": "volo_d1-b128", "deit_tiny": "deit_small-b256"}[config]
+    source = {"volo_tiny": "volo_d1-b256", "deit_tiny": "deit_small-b512"}[config]
     t = json.loads((BENCH / "workloads" / f"{source}.json").read_text())
     t.update(config=config, chips=chips, img_size=32, batch_per_chip=batch, pool_batches=4,
              limits=TINY_LIMITS[config])

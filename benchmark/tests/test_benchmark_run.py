@@ -58,6 +58,20 @@ def test_the_same_seed_gives_the_same_readings(tiny_root):
     assert a == b
 
 
+def test_a_number_without_a_limit_is_shown_and_not_compared():
+    """A limit of None shows the number in `checks` and leaves it out of
+    the verdict; the numbers with limits still decide it."""
+    nums = {name: {"value": 0.5, "leaf": None} for name in correct.NUMBERS}
+    nums["loss_gap"]["value"] = 5.0
+    limits = {name: 1.0 for name in correct.NUMBERS}
+    assert correct.judge(nums, limits, 0)["correct"] is False
+    verdict = correct.judge(nums, {**limits, "loss_gap": None}, 0)
+    assert verdict["checks"]["loss_gap"] == {"value": 5.0, "limit": None}
+    assert verdict["correct"] is True
+    assert correct.judge(nums, {**limits, "loss_gap": None, "grad_gap": 0.1}, 0)["correct"] is False
+    assert correct.judge(nums, {**limits, "loss_gap": None}, 1)["correct"] is False
+
+
 @pytest.mark.parametrize("cell", ["volo-t", "deit-t"])
 @pytest.mark.parametrize("fault", ["frozen", "half_batch"])
 def test_a_broken_step_is_not_correct(tiny_root, cell, fault):
@@ -139,6 +153,15 @@ def test_each_rank_takes_its_own_share_of_the_cores():
         assert r.stdout.strip().endswith("False")        # before PyTorch is loaded
 
 
+@pytest.mark.parametrize("given", [None, "2x"])
+def test_launch_queues_are_deepened_unless_the_caller_set_them(monkeypatch, given):
+    monkeypatch.setenv("CUDA_SCALE_LAUNCH_QUEUES", given or "")   # restored afterwards
+    if given is None:
+        monkeypatch.delenv("CUDA_SCALE_LAUNCH_QUEUES")
+    run.queue_env()
+    assert os.environ["CUDA_SCALE_LAUNCH_QUEUES"] == (given or "4x")
+
+
 def test_forbidden_modules_are_compared_by_whole_top_level_names(monkeypatch, capsys):
     monkeypatch.setitem(sys.modules, "jaxfoo", sys)
     monkeypatch.setitem(sys.modules, "autoprog_tpu_torch_extra", sys)
@@ -167,7 +190,7 @@ def test_a_run_loads_neither_jax_nor_the_jax_package(tmp_path):
 
 
 def test_without_a_card_the_run_fails_and_prints_no_result():
-    r = subprocess.run([sys.executable, "-m", "benchmark.run", "--workload", "volo_d1-b128",
+    r = subprocess.run([sys.executable, "-m", "benchmark.run", "--workload", "volo_d1-b256",
                         "--seed", str(SEED), "--seconds", "1", "--trace", "0"], cwd=REPO,
                        capture_output=True, text=True, timeout=300,
                        env={k: v for k, v in os.environ.items()
@@ -181,7 +204,7 @@ def test_without_a_card_the_run_fails_and_prints_no_result():
 def test_a_cell_runs_correct_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    r = subprocess.run([sys.executable, "-m", "benchmark.run", "--workload", "deit_small-b256",
+    r = subprocess.run([sys.executable, "-m", "benchmark.run", "--workload", "deit_small-b512",
                         "--seed", str(SEED), "--seconds", "3", "--trace", "0"], cwd=REPO,
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]

@@ -41,7 +41,7 @@ def test_a_missing_metric_file_is_refused(tmp_path):
     bench["per_layer"].append({**bench["per_layer"][0], "name": "no_such_metric"})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     with pytest.raises(FileNotFoundError):
-        spec.load("volo_d1-b128", root)
+        spec.load("volo_d1-b256", root)
 
 
 def test_a_cell_and_metric_added_as_new_files_load_without_editing_any(tmp_path):
@@ -51,7 +51,7 @@ def test_a_cell_and_metric_added_as_new_files_load_without_editing_any(tmp_path)
     root = tmp_path / "r"
     shutil.copytree(BENCH, root / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
     before = {p: p.read_bytes() for p in (root / "benchmark").rglob("*") if p.is_file()}
-    traffic = json.loads((BENCH / "workloads" / "volo_d1-b128.json").read_text())
+    traffic = json.loads((BENCH / "workloads" / "volo_d1-b256.json").read_text())
     traffic["batch_per_chip"] = 64
     (root / "benchmark" / "workloads" / "volo_d1-b64.json").write_text(json.dumps(traffic))
     (root / "benchmark" / "metrics" / "steps_per_s.py").write_text(
@@ -69,7 +69,7 @@ def test_a_cell_and_metric_added_as_new_files_load_without_editing_any(tmp_path)
     cell = spec.load("volo_d1-b64", root)
     assert cell.batch == 64 and "steps_per_s" in cell.readers
     assert cell.readers["steps_per_s"].compute({"window": {"steps": 10, "wall_s": 2.0}}) == 5
-    assert "steps_per_s" not in spec.load("volo_d1-b128", root).readers
+    assert "steps_per_s" not in spec.load("volo_d1-b256", root).readers
     for p, data in before.items():
         assert p.read_bytes() == data, p
 
@@ -81,7 +81,7 @@ def test_a_reader_that_disagrees_with_its_entry_is_refused(tmp_path):
     bench["per_layer"][0]["unit"] = "s"
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     with pytest.raises(ValueError, match="UNIT"):
-        spec.load("volo_d1-b128", root)
+        spec.load("volo_d1-b256", root)
 
 
 def test_benchmark_json_keeps_to_its_contract():
@@ -119,7 +119,7 @@ def test_a_four_card_cell_added_as_a_new_file_loads(tmp_path):
     new workload file and its entry; its file has to say the same chips."""
     root = tmp_path / "r"
     shutil.copytree(BENCH, root / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
-    traffic = json.loads((BENCH / "workloads" / "volo_d1-b128.json").read_text())
+    traffic = json.loads((BENCH / "workloads" / "volo_d1-b256.json").read_text())
     traffic["chips"] = 4
     (root / "benchmark" / "workloads" / "volo_d1-dp4-b128.json").write_text(json.dumps(traffic))
     bench = _bench()
@@ -127,7 +127,7 @@ def test_a_four_card_cell_added_as_a_new_file_loads(tmp_path):
                                "traffic": "volo_d1-dp4-b128", "chips": 4, "why": "a test"})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     cell = spec.load("volo_d1-dp4-b128", root)
-    assert cell.chips == 4 and cell.global_batch == 512
+    assert cell.chips == 4 and cell.global_batch == 1024
     bench["workloads"][-1]["chips"] = 1
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     with pytest.raises(ValueError, match="chips"):

@@ -63,7 +63,7 @@ def _ctx(kernels, steps=1):
 
 
 def test_roofline_shares_and_null_where_nothing_matches():
-    readers = spec.load("volo_d1-b128").readers
+    readers = spec.load("volo_d1-b256").readers
     ctx = _ctx(KERNELS, steps=2)
     least = sum(cost.least_s(*cost.k1_work(side, *shape), cost.BF16_FLOPS)
                 for shape in cost.mhsa_shapes(ctx["config"], 128) for side in ("fwd", "bwd"))
@@ -79,7 +79,7 @@ def test_roofline_shares_and_null_where_nothing_matches():
 
 
 def test_the_other_readers():
-    readers = spec.load("volo_d1-b128").readers
+    readers = spec.load("volo_d1-b256").readers
     ctx = _ctx(KERNELS, steps=2)
     # per chip, 1 - busy a step x the window's steps / the window's wall:
     # 1 - 1.2 / 2.0 and 1 - 1.44 / 1.6, averaged
